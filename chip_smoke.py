@@ -5,8 +5,9 @@
 
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build kernel K1 (csrc/flow_ba_lm.cu) with nvcc, print the build time
-     and the compiler's register / shared-memory report;
+  2. build kernels K1 (csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu)
+     with nvcc, both compilers started together; print the build times and
+     the compilers' register / shared-memory reports;
   3. K1 against its plain torch version on the card, at the main path's
      stage shapes: 2 instances x N=2048 with point weights (a camera stage)
      and 18 instances x N=4096 (an object stage), inputs from a numpy seed;
@@ -17,9 +18,26 @@ Phases, in order; any failure exits non-zero before the result lines:
      reclassify rounds) on make_junction_frames(12) (7 movers per frame),
      once through the kernel (counting its launches) and once with the plain
      flow-BA, then ``run_sequence_streaming`` (chunk 4) once; ms per pair
-     after a warm-up, peak memory, per-pair camera and object errors.
-Then one JSON line of kernel figures, the nvidia-smi line, and the final
-``{"ok": true, "device": ...}`` line.  Imports nothing of JAX.
+     after a warm-up, peak memory, per-pair camera and object errors;
+  5. K2 against its plain torch version on the card at the live path's two
+     shapes: 3 x 1024 local-map queries against 1024 keypoints (r = 12) and
+     the fuse scan's 4 x 1024 against 1024 (r = 6); seeded inputs with
+     duplicate descriptors (ties), invalid rows and one all-masked row;
+     best / second / index must be exactly equal; ms per call of both;
+  6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG with the window
+     and joint window BA and loop closing off (keyframes every 5 frames,
+     fused TrackLocalMap, fusion and culling, keyframe culling and
+     relocalization on) on the same junction frames, synchronous and then
+     pipelined, after one uncounted warm-up run: ms per frame (host clock
+     and CUDA events around the loop),
+     peak memory, mean camera t-RPE, ATE, keyframes, fused / culled points,
+     local-map refinements dispatched and accepted, K1 and K2 launches (K2
+     must equal the refinements plus the fuse scans, and be > 0); then the
+     synchronous run once more with the plain matcher, whose trajectory
+     must agree with the kernel run to 1e-4.
+Then one JSON line of kernel figures (K1's launches from the synchronous
+live run), the nvidia-smi line, and the final ``{"ok": true, "device": ...}``
+line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,10 +51,14 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+KERNELS = ("flow_ba_lm", "match_projected")
 
 # K1 contract with its plain version (the Pallas-vs-XLA contract of the JAX
 # package, tests/test_flow_ba_pallas.py): float32 sums in another order
 T_ATOL, INLIER_TOL, REPROJ_RTOL = 2e-4, 2, 0.05
+# the live system through K2 against the plain matcher: K2 is exact, so any
+# difference comes from elsewhere (float32 solves repeat run to run)
+LIVE_T_ATOL = 1e-4
 
 
 def log(*a):
@@ -154,17 +176,13 @@ def finite_tree(res) -> bool:
     return all(ok)
 
 
-def phase_slice(dev):
+def phase_slice(dev, frames):
     import torch
 
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG
-    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM, make_junction_frames
     from multimot_track_tpu_torch.pipeline import batch
     from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
 
-    t0 = time.perf_counter()
-    frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
-    log(f"[slice] rendered {len(frames)} junction frames in {time.perf_counter() - t0:.1f} s")
     cfg = DEFAULT_CONFIG
     n_pairs = len(frames) - 1
     n_chunks = -(-n_pairs // 16)
@@ -234,6 +252,148 @@ def phase_slice(dev):
     return dict(launches=launches, ms_per_pair=ev / n_pairs, peak_bytes=peak)
 
 
+def make_match_problem(rng, L, N, M, radius):
+    """Seeded K2 inputs at KITTI width: descriptors drawn from a pool of 32
+    (exact ties), 2 % bit noise on half of them, 10 % invalid rows on both
+    sides, queries near a reference (four exactly on the radius), and one
+    query whose every candidate is out of range."""
+    import torch
+
+    pool = np.where(rng.uniform(size=(32, 256)) < 0.5, 1, -1).astype(np.int8)
+
+    def draw(n):
+        d = pool[rng.integers(32, size=n)].copy()
+        flip = (rng.uniform(size=(n, 256)) < 0.02) & (rng.uniform(size=(n, 1)) < 0.5)
+        return np.where(flip, -d, d).astype(np.int8)
+
+    uv_b = np.round(rng.uniform(0, [1242, 375], (M, 2))).astype(np.float32)
+    uv_a = (uv_b[rng.integers(M, size=(L, N))]
+            + rng.normal(0, radius / 2, (L, N, 2))).astype(np.float32)
+    uv_a[0, :4] = uv_b[:4] + np.array([radius, 0.0], np.float32)
+    uv_a[-1, -1] = (1e4, 1e4)
+    arrays = (draw(L * N).reshape(L, N, 256), uv_a, rng.uniform(size=(L, N)) < 0.9,
+              draw(M), uv_b, rng.uniform(size=M) < 0.9)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+def phase_match_kernel(dev):
+    import torch
+
+    from multimot_track_tpu_torch.ops import matching
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+
+    rng = np.random.default_rng(1)
+    figures = []
+    for name, L, N, M, radius in (("local map 3x1024 vs 1024, r=12", 1, 3072, 1024, 12.0),
+                                  ("fuse scan 4 x 1024 vs 1024, r=6", 4, 1024, 1024, 6.0)):
+        args = [a.to(dev) for a in make_match_problem(rng, L, N, M, radius)]
+        run_k = lambda: match_projected_cuda(*args, radius=radius)
+        run_p = lambda: matching.match_projected_plain(*args, radius=radius)
+        bk, sk, ik = run_k()
+        torch.cuda.synchronize()
+        bp, sp, ip = run_p()
+        torch.cuda.synchronize()
+        n_diff = int((bk != bp).sum() + (sk != sp).sum() + (ik != ip).sum())
+        err = float(torch.maximum((bk - bp).abs().max(), (sk - sp).abs().max()))
+        ties = int(((bk == sk) & (bk < 1e9)).sum())
+        ms_k = time_ms(run_k, rounds=5, reps=20)
+        ms_p = time_ms(run_p, rounds=5, reps=5)
+        log(f"[K2] {name}: {n_diff} differing outputs of {3 * L * N} (must be 0), "
+            f"max|d dist| {err:.1f}, {ties} rows with a tied best/second | kernel "
+            f"{ms_k:.4f} ms/call, plain {ms_p:.4f} ms/call")
+        if n_diff:
+            raise SystemExit(f"K2 disagrees with its plain version on {name}")
+        figures.append(dict(stage=name, max_abs_err=err, ms=ms_k, plain_ms=ms_p))
+    return figures
+
+
+def live_config():
+    """The live slice at DEFAULT_CONFIG widths: window BA and joint window
+    BA off (loop closing is off at construction)."""
+    import dataclasses
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG as D
+
+    return dataclasses.replace(D, backend=dataclasses.replace(
+        D.backend, window_refine=False, joint_window_refine=False))
+
+
+def run_live(dev, frames, **kw):
+    """One live run; returns (system, delivered results, host s, event ms)."""
+    import torch
+
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    s = MultiMotSystem(live_config(), seed=0, enable_loop_closing=False, device=dev, **kw)
+    ups = [s.upload(fd) for fd in frames]          # uploads are set-up, not the loop
+    torch.cuda.synchronize(dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    out = [s.track_rgbd(fd, uploaded=u) for fd, u in zip(frames, ups)]
+    out.append(s.flush())
+    b.record()
+    b.synchronize()
+    return s, [r for r in out if r is not None], time.perf_counter() - t0, a.elapsed_time(b)
+
+
+def phase_live(dev, frames):
+    import torch
+
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    n = len(frames)
+    t0 = time.perf_counter()
+    run_live(dev, frames)            # warm-up: library handles, allocator, first calls
+    log(f"[live] warm-up run (synchronous, not counted) in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for mode, kw in (("sync", {}), ("pipelined", dict(pipelined=True))):
+        solve_flow_ba_cuda.launches = 0
+        match_projected_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        s, res, host_s, ev_ms = run_live(dev, frames, **kw)
+        k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        kf = s.keyframes
+        summ = s.summary()
+        log(f"[live {mode}] {n} frames: {1e3 * host_s / n:.2f} ms/frame (host clock), "
+            f"{ev_ms / n:.2f} ms/frame (CUDA events), peak {peak / 2**30:.3f} GiB")
+        log(f"[live {mode}] mean cam t-RPE {summ['cam_t_rpe_rel_mean']:.5f}, ATE "
+            f"{summ['ego_ate_rmse_m']:.5f} m (raw {summ['ego_ate_rmse_raw_m']:.5f} m), "
+            f"{summ['n_obj_estimates']} object records, state {s.state}")
+        log(f"[live {mode}] keyframes {[k.index for k in kf.frames]}, fuse scans "
+            f"{kf.n_fuse_scans}, fused {kf.n_fused}, culled {kf.n_culled}, live points "
+            f"{kf.n_live_points()}; local-map refinements {s.n_lm_dispatched} dispatched, "
+            f"{len(s.lm_accepted_frames)} accepted (frames {s.lm_accepted_frames}); "
+            f"relocalized {s.n_relocalized}")
+        log(f"[live {mode}] launches: K1 {k1}, K2 {k2} "
+            f"(expect {s.n_lm_dispatched} + {kf.n_fuse_scans})")
+        log(f"[live {mode}] stages: {json.dumps(s.stage_report())}")
+        if len(res) != n - 1 or len(s.map.camera_poses) != n:
+            raise SystemExit(f"live {mode}: {len(res)} results for {n - 1} pairs")
+        if not np.all(np.isfinite(np.stack(s.map.camera_poses))) or not finite_tree(res[-1]):
+            raise SystemExit(f"live {mode}: non-finite output")
+        if not (k2 == s.n_lm_dispatched + kf.n_fuse_scans and k2 > 0 and k1 > 0):
+            raise SystemExit(f"live {mode}: K2 launched {k2} times for "
+                             f"{s.n_lm_dispatched} refinements + {kf.n_fuse_scans} fuse scans")
+        if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
+            raise SystemExit(f"live {mode}: tracking accuracy out of bounds")
+        if mode == "sync" and not s.lm_accepted_frames:
+            raise SystemExit("live sync: no local-map refinement was accepted")
+        runs[mode] = dict(system=s, k1=k1, k2=k2)
+
+    s_p, _, host_p, _ = run_live(dev, frames, match_backend="torch")
+    s_k = runs["sync"]["system"]
+    dT = float(np.abs(np.stack(s_k.map.camera_poses) - np.stack(s_p.map.camera_poses)).max())
+    log(f"[live sync, plain matcher] {1e3 * host_p / n:.2f} ms/frame (host clock); "
+        f"max|dT| against the K2 run {dT:.3e} (tol {LIVE_T_ATOL}); accepted "
+        f"{s_p.lm_accepted_frames}")
+    if dT > LIVE_T_ATOL:
+        raise SystemExit("live: the K2 run and the plain-matcher run disagree")
+    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"])
+
+
 def main() -> int:
     import torch
 
@@ -245,30 +405,50 @@ def main() -> int:
     log(f"[card] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     sys.path.insert(0, REPO)
+    from concurrent.futures import ThreadPoolExecutor
+
     from multimot_track_tpu_torch import kernels
+    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM, make_junction_frames
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    kernels.load("flow_ba_lm")
-    log(f"[build] flow_ba_lm built/loaded in {time.perf_counter() - t0:.1f} s")
-    for line in kernels.build_log("flow_ba_lm").splitlines():
-        if "ptxas" in line or "seconds" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:       # one nvcc per source, together
+        for name, _ in zip(KERNELS, pool.map(kernels.build, KERNELS)):
+            log(f"[build] {name} built by {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        kernels.load(name)
+        for line in kernels.build_log(name).splitlines():
+            if "ptxas" in line or "seconds" in line:
+                log(f"[build] {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
+    log(f"[scene] rendered {len(frames)} junction frames in {time.perf_counter() - t0:.1f} s")
 
     k1 = phase_kernel_vs_plain(dev)
-    sl = phase_slice(dev)
+    phase_slice(dev, frames)
+    k2 = phase_match_kernel(dev)
+    live = phase_live(dev, frames)
 
-    obj = k1[-1]
+    obj, lm = k1[-1], k2[0]
     log(json.dumps({"kernels": [{
         "name": "flow_ba_lm",
         "route": "cuda",
         "source": "multimot_track_tpu_torch/csrc/flow_ba_lm.cu",
         "replaces": "multimot_track_tpu/solvers/flow_ba_pallas.py:372",
-        "launches": sl["launches"],
+        "launches": live["k1_launches"],
         "max_abs_err": max(f["max_abs_err"] for f in k1),
         "ms": obj["ms"],
         "plain_ms": obj["plain_ms"],
+    }, {
+        "name": "match_projected",
+        "route": "cuda",
+        "source": "multimot_track_tpu_torch/csrc/match_projected.cu",
+        "replaces": "multimot_track_tpu/ops/pallas_match.py:63",
+        "launches": live["k2_launches"],
+        "max_abs_err": max(f["max_abs_err"] for f in k2),
+        "ms": lm["ms"],
+        "plain_ms": lm["plain_ms"],
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

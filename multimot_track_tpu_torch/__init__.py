@@ -2,18 +2,23 @@
 
 The pair-tracking path of the JAX package (frontend, correspondence
 handoff, ego and per-object flow-BA, metrics, batched and streaming
-drivers) rewritten on torch tensors with an explicit leading batch axis in
-place of ``vmap``.  The flow-BA Levenberg-Marquardt solve runs as a
-hand-written CUDA kernel on CUDA tensors (solvers/flow_ba_cuda.py,
-csrc/flow_ba_lm.cu) and as plain torch on CPU tensors.
+drivers) and the live RGB-D system (keyframes, TrackLocalMap, map-point
+fusion and culling, relocalization) rewritten on torch tensors with an
+explicit leading batch axis in place of ``vmap``.  Two hand-written CUDA
+kernels run on CUDA tensors, and their plain torch versions on CPU
+tensors: the flow-BA Levenberg-Marquardt solve (solvers/flow_ba_cuda.py,
+csrc/flow_ba_lm.cu) and the projection-gated descriptor matcher
+(ops/match_cuda.py, csrc/match_projected.cu).
 
 Module layout mirrors the JAX package one to one:
   geometry/  SE(3) and pinhole camera math
   io/        numpy copies of the host-side frame record and synthetic scenes
-  ops/       wire decoders, patch ZNCC, the separable-weight image resize
-  frontend/  FAST pyramid, static and dense-object sampling
-  solvers/   Horn alignment, RANSAC, flow-BA (torch + CUDA kernel)
-  pipeline/  frame observations, pair tracker, batched/streaming drivers
+  ops/       wire decoders, patch ZNCC, the separable-weight image resize,
+             descriptor matching (torch + CUDA kernel)
+  frontend/  FAST pyramid, ORB descriptors, static and dense-object sampling
+  solvers/   Horn alignment, RANSAC, PnP, flow-BA (torch + CUDA kernel)
+  pipeline/  frame observations, pair tracker, batched/streaming drivers,
+             keyframe store, live refinement, the live system
   eval/      RPE / segmentation / histogram metrics
   state.py   converts the JAX package's state to tensors and back
 

@@ -12,6 +12,9 @@ the seed ensemble (B, K_s, S, ...).  Each flow-BA stage is therefore one
 solve over all instances of the chunk: camera forward (B), camera backward
 (B), then object stage 0 and each reclassify round (B * K_s * S each).
 
+``first_step`` and ``full_step`` run one frame of the live loop at B = 1
+(the live system's per-frame program).
+
 Index clamps written out where XLA clamps silently and torch raises:
 ``slot_of_label[ob_cur_label]``, ``H_prev_by_label[mode_lab]``; the JAX
 ``.at[tgt].set(..., mode="drop")`` compaction scatters into an M+1 buffer
@@ -460,3 +463,50 @@ def next_context(result: PairResult, prev: TrackContext, k_obj_max: int) -> Trac
         T_velocity=result.Tcw_cur @ se3.inverse(prev.Tcw_last),
         velocity_valid=torch.ones((B,), dtype=torch.bool, device=dev),
     )
+
+
+def _frame_observation(gray_u8, depth_w, flow_w, sem_w, gt, cfg: PipelineConfig,
+                       generator: Optional[torch.Generator] = None):
+    """One frame's wire tensors (no batch axis) -> (decoded depth image,
+    decoded labels, gray, unbatched FrameObservation)."""
+    from multimot_track_tpu_torch.ops import wire
+    from multimot_track_tpu_torch.pipeline import frames as F
+
+    cam = cfg.camera
+    gray = gray_u8.to(torch.float32)[None]
+    depth_raw = wire._decode_depth(depth_w[None], cam.width)
+    sem = wire._decode_sem(sem_w[None], cam.width)
+    flow = wire._decode_flow(flow_w[None], cam.height, cam.width)
+    obs = F.build_frame_observation(gray, depth_raw, flow, sem,
+                                    tree_map(lambda x: x[None], gt), cfg, generator=generator)
+    return depth_raw, sem, gray, obs
+
+
+def first_step(gray_u8, depth_w, flow_w, sem_w, gt, cfg: PipelineConfig,
+               generator: Optional[torch.Generator] = None):
+    """Frame 0: the frontend only.  Wire tensors of one frame and its
+    unbatched GTTable -> the unbatched FrameObservation."""
+    obs = _frame_observation(gray_u8, depth_w, flow_w, sem_w, gt, cfg, generator)[3]
+    return tree_map(lambda x: x[0], obs)
+
+
+def full_step(sampler: ransac.HypothesisSampler, pair_id: int, prev_obs, gray_u8, depth_w,
+              flow_w, sem_w, gt_cur, ctx: TrackContext, cfg: PipelineConfig,
+              backend: Optional[str] = None, generator: Optional[torch.Generator] = None):
+    """One frame of the live loop: frontend, pair build and ``track_pair``
+    at B = 1 against the previous frame's observation.  ``pair_id`` names
+    the pair for the hypothesis sampler (the live system passes the frame
+    index).  Returns (PairResult, next TrackContext, this FrameObservation),
+    all without the batch axis."""
+    from multimot_track_tpu_torch.pipeline import frames as F
+
+    noise = generator if (cfg.solver.depth_noise or cfg.solver.flow_outliers) else None
+    depth_raw, sem, gray, obs = _frame_observation(gray_u8, depth_w, flow_w, sem_w, gt_cur,
+                                                   cfg, noise)
+    pair = F.build_pair(tree_map(lambda x: x[None], prev_obs), depth_raw, sem, obs.gt, cfg,
+                        cur_gray=gray)
+    ctx_b = tree_map(lambda x: x[None], ctx)
+    res = track_pairs(pair, ctx_b, cfg, sampler, [pair_id], backend)
+    new_ctx = next_context(res, ctx_b, cfg.padding.k_obj_max)
+    first = lambda x: x[0]
+    return tree_map(first, res), tree_map(first, new_ctx), tree_map(first, obs)

@@ -27,26 +27,28 @@ _SCORE_CHUNK_ELEMS = 1 << 25
 
 
 class HypothesisSampler(Protocol):
-    def __call__(self, p: torch.Tensor, iters: int, sites: Sequence[tuple]) -> torch.Tensor:
-        """p (M, N) row probabilities -> (M, iters, 3) int64 point indices.
+    def __call__(self, p: torch.Tensor, iters: int, sites: Sequence[tuple],
+                 k: int = 3) -> torch.Tensor:
+        """p (M, N) row probabilities -> (M, iters, k) int64 point indices.
 
         ``sites[m]`` names the draw of row m: ``(pair, "ego")`` for a pair's
-        ego RANSAC, ``(pair, "obj", slot, seed)`` for an object stream."""
+        ego RANSAC, ``(pair, "obj", slot, seed)`` for an object stream,
+        ``(frame, "pnp")`` for a relocalization PnP (k = 10)."""
 
 
 class MultinomialSampler:
-    """Draws hypothesis triples with replacement, proportional to p, from
+    """Draws hypothesis index sets with replacement, proportional to p, from
     one ``torch.Generator``.  Rows with no valid point draw uniformly."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
 
-    def __call__(self, p, iters, sites):
+    def __call__(self, p, iters, sites, k=3):
         M, N = p.shape
         empty = p.sum(-1, keepdim=True) <= 0
         p = torch.where(empty, torch.ones_like(p), p)
-        idx = torch.multinomial(p, iters * 3, replacement=True, generator=self.generator)
-        return idx.view(M, iters, 3)
+        idx = torch.multinomial(p, iters * k, replacement=True, generator=self.generator)
+        return idx.view(M, iters, k)
 
 
 class RansacResult(NamedTuple):
@@ -64,18 +66,19 @@ def _count_inliers(T, Xw, uv, valid, thresh, fx, fy, cx, cy):
     return inl, inl.sum(-1)
 
 
-def _proj_point_jacobian(y, fx, fy):
-    """d(u, v)/d xi of camera-frame points y (..., 3) under a left se(3)
-    perturbation: (..., 2, 6)."""
+def _proj_point_jacobian(y, fx, fy, bf=None):
+    """d(u, v[, disparity])/d xi of camera-frame points y (..., 3) under a
+    left se(3) perturbation: (..., 2, 6), or (..., 3, 6) with the stereo
+    disparity row bf/z when ``bf`` is given."""
     inv_z = 1.0 / torch.clamp(y[..., 2], min=1e-6)
     zero = torch.zeros_like(inv_z)
-    dpi = torch.stack(
-        [
-            torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
-            torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
-        ],
-        -2,
-    )
+    rows = [
+        torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
+        torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
+    ]
+    if bf is not None:
+        rows.append(torch.stack([zero, zero, -bf * inv_z * inv_z], -1))
+    dpi = torch.stack(rows, -2)
     eye = torch.eye(3, dtype=y.dtype, device=y.device).expand(y.shape[:-1] + (3, 3))
     dy = torch.cat([-se3.hat(y), eye], -1)
     return dpi @ dy
@@ -89,6 +92,24 @@ def _gn_refine(T, Xw, uv, w, iters, fx, fy, cx, cy):
         r = camera.project(y, fx, fy, cx, cy) - uv
         J = _proj_point_jacobian(y, fx, fy)
         Jw = J * w[..., None, None]
+        H = torch.einsum("...nia,...nib->...ab", Jw, J) + eye6
+        g = torch.einsum("...nia,...ni->...a", Jw, r)
+        T = se3.exp_se3(smallsolve.solve_spd6(H, -g)) @ T
+    return T
+
+
+def _gn_refine_stereo(T, Xw, uv_obs, disp_obs, w, w_disp, iters, fx, fy, cx, cy, bf):
+    """Weighted Gauss-Newton on the stereo residual (u, v, disparity); the
+    disparity row carries the per-point depth-variance weight ``w_disp``."""
+    eye6 = 1e-6 * torch.eye(6, dtype=T.dtype, device=T.device)
+    for _ in range(iters):
+        y = se3.transform(T, Xw)
+        r_uv = camera.project(y, fx, fy, cx, cy) - uv_obs
+        r_d = bf / torch.clamp(y[..., 2], min=1e-6) - disp_obs
+        J = _proj_point_jacobian(y, fx, fy, bf=bf)
+        r = torch.cat([r_uv, r_d[..., None]], -1)
+        wr = torch.stack([w, w, w * w_disp], -1)
+        Jw = J * wr[..., None]
         H = torch.einsum("...nia,...nib->...ab", Jw, J) + eye6
         g = torch.einsum("...nia,...ni->...a", Jw, r)
         T = se3.exp_se3(smallsolve.solve_spd6(H, -g)) @ T

@@ -1,12 +1,14 @@
-"""The hand-written CUDA kernel K1 (csrc/flow_ba_lm.cu) against its plain
-torch version.  Imports no jax, so the GPU machine runs this file as is:
+"""The hand-written CUDA kernels against their plain torch versions: K1
+(csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu).  Imports no jax, so
+the GPU machine runs this file as is:
 
-    python -m pytest -m gpu tests/test_torch_kernels.py
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tests that need the card carry the ``gpu`` marker and skip without one (the
-kernel has no CPU mode).  Tolerance: T atol 2e-4, inlier counts +-2, mean
-reprojection rtol 5 % — float32 sums in another order, the contract of the
-JAX package's Pallas kernel against XLA.
+kernels have no CPU mode).  K1 tolerance: T atol 2e-4, inlier counts +-2,
+mean reprojection rtol 5 % — float32 sums in another order, the contract of
+the JAX package's Pallas kernel against XLA.  K2 is exact: integer Hamming
+distances, the same gate rounding and the same tie order.
 """
 
 import dataclasses
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from multimot_track_tpu_torch.geometry import camera, se3
+from multimot_track_tpu_torch.ops import matching
+from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
 from multimot_track_tpu_torch.solvers import flow_ba
 from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
 
@@ -46,7 +50,7 @@ def problems(M, N, seed=0, device="cpu"):
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the flow-BA kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -102,3 +106,54 @@ def test_slice_through_kernel_matches_plain_and_counts_launches(cuda_device):
     np.testing.assert_allclose(Tk, Tp, atol=1e-3)
     np.testing.assert_array_equal(rk.objects.active, rp.objects.active)
     assert [r["track_id"] for r in reck] == [r["track_id"] for r in recp]
+
+
+def match_problem(L, N, M, radius, seed=0, device="cpu"):
+    """Seeded K2 inputs at a path shape: descriptors drawn from a small pool
+    (exact ties), 10 % invalid rows on both sides, points on the gate
+    radius, and one query whose every candidate is out of range."""
+    rng = np.random.default_rng(seed)
+    pool = np.where(rng.uniform(size=(32, 256)) < 0.5, 1, -1).astype(np.int8)
+
+    def draw(n):
+        d = pool[rng.integers(32, size=n)].copy()
+        flip = rng.uniform(size=(n, 256)) < 0.02
+        return np.where(flip & (rng.uniform(size=(n, 1)) < 0.5), -d, d)
+
+    desc_b = draw(M)
+    uv_b = np.round(rng.uniform(0, [1242, 375], (M, 2))).astype(np.float32)
+    desc_a = draw(L * N).reshape(L, N, 256)
+    uv_a = uv_b[rng.integers(M, size=(L, N))] + rng.normal(0, radius / 2, (L, N, 2))
+    uv_a = uv_a.astype(np.float32)
+    uv_a[0, :4] = uv_b[:4] + np.float32(radius) * np.array([1.0, 0.0], np.float32)
+    uv_a[-1, -1] = (1e4, 1e4)
+    va = rng.uniform(size=(L, N)) < 0.9
+    vb = rng.uniform(size=M) < 0.9
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return tuple(map(t, (desc_a, uv_a, va, desc_b, uv_b, vb)))
+
+
+def test_match_kernel_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        match_projected_cuda(*match_problem(1, 8, 8, 12.0), radius=12.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,N,M,radius", [
+    (1, 3072, 1024, 12.0),     # TrackLocalMap: 3 keyframes x 1024 against the frame's 1024
+    (4, 1024, 1024, 6.0),      # the fuse scan: 4 previous keyframes against the new one
+    (2, 333, 77, 15.0),        # ragged query tile, references not a tile multiple
+])
+def test_match_kernel_equals_plain_version(cuda_device, L, N, M, radius):
+    args = match_problem(L, N, M, radius, seed=L * N + M, device=cuda_device)
+    before = match_projected_cuda.launches
+    bk, sk, ik = match_projected_cuda(*args, radius=radius)
+    torch.cuda.synchronize()
+    assert match_projected_cuda.launches == before + 1
+    bp, sp, ip = matching.match_projected_plain(*args, radius=radius)
+    assert torch.equal(bk, bp) and torch.equal(sk, sp) and torch.equal(ik, ip)
+    assert bool(((bk == sk) & (bk < 1e9)).any())          # ties were exercised
+    assert float(bk[-1, -1]) == 1e9 and int(ik[-1, -1]) == 0
+    r = matching.match_projected_auto(*args, radius=radius)
+    assert match_projected_cuda.launches == before + 2
+    assert torch.equal(r.idx, ip)

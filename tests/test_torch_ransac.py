@@ -29,7 +29,12 @@ FX, FY, CX, CY = 460.0, 460.0, 320.0, 192.0
 
 
 class JaxKeySampler:
-    """A HypothesisSampler that draws what the JAX package draws."""
+    """A HypothesisSampler that draws what the JAX package draws.
+
+    ``pair_keys[i]`` is pair i's key: ``split(PRNGKey(seed), F-1)`` for the
+    batched drivers, ``FoldInKeys`` for the live system (its step key
+    ``fold_in(PRNGKey(seed), frame_idx)``).  A ``(frame, "pnp")`` site draws
+    with the step key itself, as relocalization's PnP does."""
 
     def __init__(self, pair_keys, k_obj_max, n_seeds):
         self.pair_keys, self.K, self.S = pair_keys, k_obj_max, n_seeds
@@ -39,18 +44,30 @@ class JaxKeySampler:
         return cls(jax.random.split(jax.random.PRNGKey(seed), n_pairs), k_obj_max, n_seeds)
 
     def key(self, site):
+        if site[1] == "pnp":
+            return self.pair_keys[site[0]]
         k_ego, k_obj = jax.random.split(self.pair_keys[site[0]])
         if site[1] == "ego":
             return k_ego
         k_rng = jax.random.split(k_obj, self.K)[site[2]]
         return k_rng if site[3] is None else jax.random.split(k_rng, self.S)[site[3]]
 
-    def __call__(self, p, iters, sites):
+    def __call__(self, p, iters, sites, k=3):
         pn = p.cpu().numpy()
-        idx = [np.asarray(jax.random.choice(self.key(s), pn.shape[1], shape=(iters, 3),
+        idx = [np.asarray(jax.random.choice(self.key(s), pn.shape[1], shape=(iters, k),
                                             replace=True, p=jnp.asarray(pn[m])))
                for m, s in enumerate(sites)]
         return torch.from_numpy(np.stack(idx)).to(torch.int64).to(p.device)
+
+
+class FoldInKeys:
+    """The live system's step keys: ``fold_in(PRNGKey(seed), frame_idx)``."""
+
+    def __init__(self, seed):
+        self.root = jax.random.PRNGKey(seed)
+
+    def __getitem__(self, frame_idx):
+        return jax.random.fold_in(self.root, frame_idx)
 
 
 def _t(a):

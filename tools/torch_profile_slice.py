@@ -1,4 +1,5 @@
-"""Where the time goes in the PyTorch port's batched slice, on one GPU.
+"""Where the time goes in the PyTorch port's batched slice and live system,
+on one GPU.
 
     python3 tools/torch_profile_slice.py [--frames 12] [--out build/profile]
 
@@ -9,7 +10,10 @@ Renders make_junction_frames(N) at the KITTI camera, runs
   * profiles one run with torch.profiler: device-busy time against the
     wall clock (the device's idle share) and the top kernels and ops by
     device time.  The Chrome trace goes to ``--out``.
-Prints the card's name and power limit first.  Needs a CUDA device.
+Then the same profile for the live system (``MultiMotSystem``, synchronous,
+window BA and loop closing off, after a warm-up run), with its per-stage
+host times.  Prints the card's name and power limit first.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -73,17 +77,48 @@ def main() -> int:
         batch.run_sequence_batched(frames, cfg, seed=0, device=dev)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+    _report(prof, wall, os.path.join(args.out, "trace.json"), "profiled batched run")
+
+    # ---- the live system: warm-up, then one profiled synchronous run ----
+    import dataclasses
+
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    live_cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+        cfg.backend, window_refine=False, joint_window_refine=False))
+
+    def live_run():
+        s = MultiMotSystem(live_cfg, seed=0, enable_loop_closing=False, device=dev)
+        for fd in frames:
+            s.track_rgbd(fd)
+        torch.cuda.synchronize()
+        return s
+
+    live_run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s = live_run()
+        wall = (time.perf_counter() - t0) * 1e3
+    _report(prof, wall, os.path.join(args.out, "trace_live.json"),
+            f"profiled live run ({len(frames)} frames)")
+    print(f"live stages (host clock, profiled): {s.stage_report()}", flush=True)
+    return 0
+
+
+def _report(prof, wall, trace_path, what):
+    """Device-busy share of ``wall`` and the top ops by device time."""
+    import torch
+
+    prof.export_chrome_trace(trace_path)
     events = [e for e in prof.profiler.kineto_results.events()
               if e.device_type() == torch.autograd.DeviceType.CUDA]
     busy = _union_ms([(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
                       for e in events])
-    print(f"profiled run: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+    print(f"{what}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
           f"idle share {1 - busy / wall:.3f}, {len(events)} device events", flush=True)
     ka = prof.key_averages()
     attr = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
     print(ka.table(sort_by=attr, row_limit=25, max_name_column_width=60), flush=True)
-    return 0
 
 
 def _union_ms(intervals):
