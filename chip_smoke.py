@@ -24,17 +24,27 @@ Phases, in order; any failure exits non-zero before the result lines:
      the fuse scan's 4 x 1024 against 1024 (r = 6); seeded inputs with
      duplicate descriptors (ties), invalid rows and one all-masked row;
      best / second / index must be exactly equal; ms per call of both;
-  6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG with the window
-     and joint window BA and loop closing off (keyframes every 5 frames,
-     fused TrackLocalMap, fusion and culling, keyframe culling and
-     relocalization on) on the same junction frames, synchronous and then
-     pipelined, after one uncounted warm-up run: ms per frame (host clock
-     and CUDA events around the loop),
-     peak memory, mean camera t-RPE, ATE, keyframes, fused / culled points,
-     local-map refinements dispatched and accepted, K1 and K2 launches (K2
-     must equal the refinements plus the fuse scans, and be > 0); then the
-     synchronous run once more with the plain matcher, whose trajectory
-     must agree with the kernel run to 1e-4.
+  6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG (trailing-window
+     BA every frame, joint ego+object window BA at keyframe cadence,
+     keyframes every 5 frames, fused TrackLocalMap, fusion and culling,
+     keyframe culling and relocalization on; loop closing off) on the same
+     junction frames, synchronous and then pipelined with the async
+     keyframe cadence, after one uncounted warm-up run: ms per frame (host
+     clock and CUDA events around the loop), stage means, peak memory, mean
+     camera t-RPE, ATE, refined object t-RPE, keyframes, fused / culled
+     points, local-map and window refinements dispatched and accepted,
+     joint window refines, K1 and K2 launches (K2 must equal the local-map
+     refinements plus the fuse scans, and be > 0; a window refinement per
+     frame from the first full window, at least one accepted; at least one
+     joint refine in sync); then the synchronous run once more with the
+     plain matcher, whose trajectory must agree with the kernel run to
+     1e-4, and once with both windows off;
+  7. the window solvers: ``refine_trailing_window`` and
+     ``refine_joint_window`` on frames 0-4 with the synchronous run's poses
+     and object measurements, on the card and on the CPU (poses and
+     motions within 1e-3, live tracks within 2), ms per call of both; then
+     ``build_window_tracks`` on frames 0-4 through K2 and through the plain
+     matcher (identical tracks, 4 K2 launches).
 Then one JSON line of kernel figures (K1's launches from the synchronous
 live run), the nvidia-smi line, and the final ``{"ok": true, "device": ...}``
 line.  Imports nothing of JAX.
@@ -307,24 +317,28 @@ def phase_match_kernel(dev):
     return figures
 
 
-def live_config():
-    """The live slice at DEFAULT_CONFIG widths: window BA and joint window
-    BA off (loop closing is off at construction)."""
+def live_config(windows: bool = True):
+    """The live system at DEFAULT_CONFIG (trailing-window BA over 5 frames,
+    joint ego+object window BA at keyframe cadence); ``windows=False`` turns
+    both off, the configuration of the earlier live figures.  Loop closing
+    is off at construction."""
     import dataclasses
 
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG as D
 
+    if windows:
+        return D
     return dataclasses.replace(D, backend=dataclasses.replace(
         D.backend, window_refine=False, joint_window_refine=False))
 
 
-def run_live(dev, frames, **kw):
+def run_live(dev, frames, cfg, **kw):
     """One live run; returns (system, delivered results, host s, event ms)."""
     import torch
 
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
 
-    s = MultiMotSystem(live_config(), seed=0, enable_loop_closing=False, device=dev, **kw)
+    s = MultiMotSystem(cfg, seed=0, enable_loop_closing=False, device=dev, **kw)
     ups = [s.upload(fd) for fd in frames]          # uploads are set-up, not the loop
     torch.cuda.synchronize(dev)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -344,32 +358,41 @@ def phase_live(dev, frames):
     from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
 
     n = len(frames)
+    cfg = live_config()
+    n_win = n - cfg.backend.window_size + 1     # every frame from the first full window
     t0 = time.perf_counter()
-    run_live(dev, frames)            # warm-up: library handles, allocator, first calls
-    log(f"[live] warm-up run (synchronous, not counted) in {time.perf_counter() - t0:.1f} s")
+    run_live(dev, frames, cfg)       # warm-up: library handles, allocator, first calls
+    log(f"[live] warm-up run (synchronous, windows on, not counted) in "
+        f"{time.perf_counter() - t0:.1f} s")
     runs = {}
     for mode, kw in (("sync", {}), ("pipelined", dict(pipelined=True))):
         solve_flow_ba_cuda.launches = 0
         match_projected_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
-        s, res, host_s, ev_ms = run_live(dev, frames, **kw)
+        s, res, host_s, ev_ms = run_live(dev, frames, cfg, **kw)
         k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
         peak = torch.cuda.max_memory_allocated(dev)
         kf = s.keyframes
         summ = s.summary()
+        stages = s.stage_report()
         log(f"[live {mode}] {n} frames: {1e3 * host_s / n:.2f} ms/frame (host clock), "
             f"{ev_ms / n:.2f} ms/frame (CUDA events), peak {peak / 2**30:.3f} GiB")
-        log(f"[live {mode}] mean cam t-RPE {summ['cam_t_rpe_rel_mean']:.5f}, ATE "
-            f"{summ['ego_ate_rmse_m']:.5f} m (raw {summ['ego_ate_rmse_raw_m']:.5f} m), "
-            f"{summ['n_obj_estimates']} object records, state {s.state}")
+        log(f"[live {mode}] mean cam t-RPE {summ['cam_t_rpe_rel_mean']:.5f} (refined "
+            f"{summ['cam_t_rpe_refined_mean']:.5f}), ATE {summ['ego_ate_rmse_m']:.5f} m (raw "
+            f"{summ['ego_ate_rmse_raw_m']:.5f} m), refined obj t-RPE "
+            f"{summ['obj_t_rpe_refined_mean']}, {summ['n_obj_estimates']} object records, "
+            f"state {s.state}")
         log(f"[live {mode}] keyframes {[k.index for k in kf.frames]}, fuse scans "
             f"{kf.n_fuse_scans}, fused {kf.n_fused}, culled {kf.n_culled}, live points "
             f"{kf.n_live_points()}; local-map refinements {s.n_lm_dispatched} dispatched, "
             f"{len(s.lm_accepted_frames)} accepted (frames {s.lm_accepted_frames}); "
             f"relocalized {s.n_relocalized}")
+        log(f"[live {mode}] window refinements {s.n_win_dispatched} dispatched (expect "
+            f"{n_win}), {len(s.win_accepted_frames)} accepted (frames "
+            f"{s.win_accepted_frames}); joint window refines {s.n_joint_refines}")
         log(f"[live {mode}] launches: K1 {k1}, K2 {k2} "
             f"(expect {s.n_lm_dispatched} + {kf.n_fuse_scans})")
-        log(f"[live {mode}] stages: {json.dumps(s.stage_report())}")
+        log(f"[live {mode}] stages: {json.dumps(stages)}")
         if len(res) != n - 1 or len(s.map.camera_poses) != n:
             raise SystemExit(f"live {mode}: {len(res)} results for {n - 1} pairs")
         if not np.all(np.isfinite(np.stack(s.map.camera_poses))) or not finite_tree(res[-1]):
@@ -379,19 +402,128 @@ def phase_live(dev, frames):
                              f"{s.n_lm_dispatched} refinements + {kf.n_fuse_scans} fuse scans")
         if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
             raise SystemExit(f"live {mode}: tracking accuracy out of bounds")
-        if mode == "sync" and not s.lm_accepted_frames:
-            raise SystemExit("live sync: no local-map refinement was accepted")
+        # an accepted window had at least min_window_tracks live tracks
+        if s.n_win_dispatched != n_win or not s.win_accepted_frames \
+                or "window_refine" not in stages:
+            raise SystemExit(f"live {mode}: window refinements {s.n_win_dispatched} "
+                             f"dispatched (expect {n_win}), {s.win_accepted_frames} accepted")
+        if mode == "sync" and not (s.lm_accepted_frames and s.n_joint_refines >= 1
+                                   and "joint_ba" in stages):
+            raise SystemExit(f"live sync: local-map accepts {s.lm_accepted_frames}, "
+                             f"joint window refines {s.n_joint_refines}")
         runs[mode] = dict(system=s, k1=k1, k2=k2)
 
-    s_p, _, host_p, _ = run_live(dev, frames, match_backend="torch")
+    s_p, _, host_p, _ = run_live(dev, frames, cfg, match_backend="torch")
     s_k = runs["sync"]["system"]
     dT = float(np.abs(np.stack(s_k.map.camera_poses) - np.stack(s_p.map.camera_poses)).max())
     log(f"[live sync, plain matcher] {1e3 * host_p / n:.2f} ms/frame (host clock); "
         f"max|dT| against the K2 run {dT:.3e} (tol {LIVE_T_ATOL}); accepted "
-        f"{s_p.lm_accepted_frames}")
+        f"{s_p.lm_accepted_frames}, windows {s_p.win_accepted_frames}")
     if dT > LIVE_T_ATOL:
         raise SystemExit("live: the K2 run and the plain-matcher run disagree")
-    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"])
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    s_o, _, host_o, ev_o = run_live(dev, frames, live_config(windows=False))
+    summ = s_o.summary()
+    log(f"[live sync, windows off] {1e3 * host_o / n:.2f} ms/frame (host clock), "
+        f"{ev_o / n:.2f} ms/frame (CUDA events), peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; mean cam t-RPE "
+        f"{summ['cam_t_rpe_rel_mean']:.5f}, ATE {summ['ego_ate_rmse_m']:.5f} m, refined obj "
+        f"t-RPE {summ['obj_t_rpe_refined_mean']}; stages {json.dumps(s_o.stage_report())}")
+    if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
+        raise SystemExit("live, windows off: tracking accuracy out of bounds")
+    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"], system=s_k)
+
+
+def host_ms(fn, reps):
+    """Mean wall ms per call of ``fn`` over ``reps`` calls, after one
+    warm-up call (the card synchronised around the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_window(dev, frames, s):
+    """The window solvers on the card against the same calls on the CPU, on
+    the first window of the junction scene with the synchronous run's poses
+    and object measurements; then the window tracks through K2 and through
+    the plain matcher."""
+    import torch
+
+    from multimot_track_tpu_torch.frontend import tracks
+    from multimot_track_tpu_torch.geometry import camera
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+    from multimot_track_tpu_torch.pipeline import window_refine
+    from multimot_track_tpu_torch.pipeline.system import joint_motion_init
+
+    cfg = s.cfg
+    Wn = cfg.backend.window_size
+    win = frames[:Wn]
+    rows = list(range(Wn))
+    Twc0 = s.map.camera_poses[0]
+    poses_rel = np.stack([np.linalg.inv(s.map.camera_poses[r]) @ Twc0
+                          for r in rows]).astype(np.float32)
+    H_init, H_valid, used = joint_motion_init(s.map.obj_records, rows, poses_rel,
+                                              cfg.padding.k_obj_max)
+    wire_h = [s._compact_images(fd) for fd in win]
+    out = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+        g, dp, fl, sm = (up(np.stack([w[i] for w in (wire_h[:-1] if i == 2 else wire_h)]))
+                         for i in range(4))
+        P, H, V = up(poses_rel), up(H_init), up(H_valid)
+        trail = lambda: window_refine.refine_trailing_window(P, g, dp[0], fl, sm, cfg)
+        joint = lambda: window_refine.refine_joint_window(P, H, V, g, dp, fl, sm, cfg)
+        P_t, n_live = trail()
+        P_j, M_j, _ = joint()
+        reps = 5 if where == "cuda" else 1
+        out[where] = dict(P_t=P_t.cpu().numpy(), n_live=int(n_live), P_j=P_j.cpu().numpy(),
+                          M_j=M_j.cpu().numpy(), ms_t=host_ms(trail, reps),
+                          ms_j=host_ms(joint, reps))
+    c, h = out["cuda"], out["cpu"]
+    dP_t = float(np.abs(c["P_t"] - h["P_t"]).max())
+    dP_j = float(np.abs(c["P_j"] - h["P_j"]).max())
+    dM_j = float(np.abs(c["M_j"] - h["M_j"]).max())
+    moved = float(np.abs(c["P_t"] - poses_rel).max())
+    log(f"[window] trailing window BA, frames 0-{Wn - 1}: n_live cuda {c['n_live']} cpu "
+        f"{h['n_live']} (tol 2), max|dPose| {dP_t:.3e} (tol 1e-3), moved the poses by "
+        f"{moved:.3e} | cuda {c['ms_t']:.2f} ms/call, cpu {h['ms_t']:.2f} ms/call")
+    log(f"[window] joint window BA ({len(used)} object slots on {Wn - 1} pairs): "
+        f"max|dPose| {dP_j:.3e}, max|dMotion| {dM_j:.3e} (tol 1e-3) | cuda "
+        f"{c['ms_j']:.2f} ms/call, cpu {h['ms_j']:.2f} ms/call")
+    if not (np.isfinite(c["P_t"]).all() and np.isfinite(c["P_j"]).all()
+            and np.isfinite(c["M_j"]).all() and used):
+        raise SystemExit("window solvers: non-finite output or no object in the window")
+    if abs(c["n_live"] - h["n_live"]) > 2 or c["n_live"] < cfg.backend.min_window_tracks:
+        raise SystemExit(f"window BA: n_live {c['n_live']} on the card, {h['n_live']} on the CPU")
+    if max(dP_t, dP_j, dM_j) > 1e-3:
+        raise SystemExit("window solvers: the card and the CPU disagree")
+
+    fl = lambda a: torch.from_numpy(np.stack(a).astype(np.float32)).to(dev)
+    grays, flows = fl([fd.gray for fd in win]), fl([fd.flow for fd in win[:-1]])
+    sems = torch.from_numpy(np.stack([fd.sem_mask for fd in win]).astype(np.int32)).to(dev)
+    depth0 = camera.disparity_png_to_depth(fl([win[0].depth_raw])[0], cfg.camera.bf)
+    build = lambda b: tracks.build_window_tracks(grays, flows, depth0, sems, backend=b)
+    match_projected_cuda.launches = 0
+    tr_k, z_k = build("cuda")
+    launches = match_projected_cuda.launches
+    tr_p, z_p = build("torch")
+    same = bool(torch.equal(tr_k.uv, tr_p.uv) and torch.equal(tr_k.alive, tr_p.alive)
+                and torch.equal(z_k, z_p))
+    ms_k, ms_p = host_ms(lambda: build("cuda"), 3), host_ms(lambda: build("torch"), 3)
+    log(f"[window] build_window_tracks frames 0-{Wn - 1} (3072 keypoints, r = 15): K2 "
+        f"launches {launches} (expect {Wn - 1}), identical to the plain matcher: {same}, "
+        f"{int(tr_k.alive[-1].sum())} of {int(tr_k.alive[0].sum())} tracks alive at the end "
+        f"| K2 {ms_k:.2f} ms/call, plain {ms_p:.2f} ms/call")
+    if not same or launches != Wn - 1:
+        raise SystemExit("window tracks: K2 and the plain matcher disagree")
 
 
 def main() -> int:
@@ -429,6 +561,7 @@ def main() -> int:
     phase_slice(dev, frames)
     k2 = phase_match_kernel(dev)
     live = phase_live(dev, frames)
+    phase_window(dev, frames, live["system"])
 
     obj, lm = k1[-1], k2[0]
     log(json.dumps({"kernels": [{

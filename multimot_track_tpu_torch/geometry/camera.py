@@ -1,7 +1,7 @@
 """Pinhole camera projection / unprojection on batched torch tensors.
 
 Port of ``multimot_track_tpu.geometry.camera`` (the functions the pair
-path uses).
+path and the window tracks use; undistortion is not ported yet).
 """
 
 from __future__ import annotations
@@ -31,6 +31,27 @@ def disparity_png_to_depth(raw: torch.Tensor, bf: float) -> torch.Tensor:
     disp = raw.to(torch.float32) / 256.0
     return torch.where(disp > 0, bf / torch.clamp(disp, min=1e-12),
                        torch.full_like(disp, float("inf")))
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of one (H, W) or (H, W, C) image at float pixel
+    positions (..., 2).  Positions clip to [0, W - 1.001] x [0, H - 1.001];
+    integer images blend in float32."""
+    H, W = img.shape[0], img.shape[1]
+    u = torch.clamp(uv[..., 0], 0.0, W - 1.001)
+    v = torch.clamp(uv[..., 1], 0.0, H - 1.001)
+    u0 = torch.floor(u).to(torch.int32)
+    v0 = torch.floor(v).to(torch.int32)
+    du, dv = u - u0, v - v0
+    if img.is_floating_point():
+        du, dv = du.to(img.dtype), dv.to(img.dtype)
+    u0, v0 = u0.long(), v0.long()
+    i00, i01 = img[v0, u0], img[v0, u0 + 1]
+    i10, i11 = img[v0 + 1, u0], img[v0 + 1, u0 + 1]
+    if img.dim() == 3:
+        du, dv = du[..., None], dv[..., None]
+    return (i00 * (1 - du) * (1 - dv) + i01 * du * (1 - dv)
+            + i10 * (1 - du) * dv + i11 * du * dv)
 
 
 def gather_pixels(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

@@ -113,6 +113,15 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], -2)
 
 
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """SE(3) adjoint for the (omega, upsilon) ordering:
+    Ad(T) = [[R, 0], [hat(t) R, R]] (..., 6, 6); T exp(xi) T^-1 = exp(Ad(T) xi)."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, torch.zeros_like(R)], -1)
+    bottom = torch.cat([hat(T[..., :3, 3]) @ R, R], -1)
+    return torch.cat([top, bottom], -2)
+
+
 def inverse(T: torch.Tensor) -> torch.Tensor:
     """Rigid inverse."""
     Rt = T[..., :3, :3].transpose(-1, -2)

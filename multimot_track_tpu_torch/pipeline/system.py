@@ -1,29 +1,32 @@
 """The live RGB-D system: host orchestration of the per-frame device work.
 
 Port of ``multimot_track_tpu.pipeline.system`` for the live path with
-keyframes, fused TrackLocalMap, map-point fusion and culling, keyframe
-culling and relocalization on LOST, in the synchronous and the pipelined
+keyframes, fused TrackLocalMap, the trailing-window BA, map-point fusion
+and culling, keyframe culling, the joint ego+object window BA and
+relocalization on LOST, in the synchronous and the pipelined
 (one-frame-latency, async keyframe cadence) modes:
 
 * per frame, ``tracker.full_step`` (frontend, pair build, ego and object
   solves) and the frame's FAST + ORB + depth features run on ``device``;
-  the local-map refinement and its gates follow on the device
+  the local-map refinement and its gates, then the trailing-window BA
+  over the last ``window_size`` frames, follow on the device
   (``live_refine``), and the host reads the result once;
 * the host keeps the tracking-state machine (LOST ladder: relocalization,
   constant-velocity fallback, reset), persistent track IDs, the evaluation
   stores and the trajectory savers;
 * keyframe upkeep (capture, fuse scan, found-ratio culling, redundancy
-  culling) runs at keyframe cadence, synchronously or dispatched one frame
-  ahead of its consumption.
+  culling, the joint window BA) runs at keyframe cadence, synchronously or
+  dispatched one frame ahead of its consumption;
+* the window's wire tensors stay on the device (``_win``), so the window
+  refinements re-read the frames without another upload.
 
 Random draws: RANSAC and PnP hypotheses come from a
 ``ransac.HypothesisSampler`` with ``pair_id = frame_idx`` (the JAX package
 folds the frame index into its key), and depth / flow noise from a
 ``torch.Generator``.
 
-Not ported yet, and refused by the constructor rather than skipped: the
-trailing-window and joint ego+object window BA (ROADMAP item 14), loop
-closing (item 15) and mask-free object discovery (item 18).
+Not ported yet, and refused by the constructor rather than skipped: loop
+closing (ROADMAP item 15) and mask-free object discovery (item 18).
 """
 
 from __future__ import annotations
@@ -98,6 +101,28 @@ def _keyframe_payload(uv, desc, valid, z, Twc, fx, fy, cx, cy):
 def _split_payload(f32, n: int):
     """(uv (n, 2), Xw (n, 3), valid (n,)) views of a payload buffer."""
     return f32[: 2 * n].reshape(n, 2), f32[2 * n: 5 * n].reshape(n, 3), f32[5 * n:] > 0.5
+
+
+def joint_motion_init(obj_records, rows, poses_rel: np.ndarray, K: int):
+    """Object motions that start the joint window BA: the P_lc of the
+    record of (pair f's second frame ``rows[f + 1]``, label k + 1),
+    re-anchored in the window's frame (``poses_rel`` (W, 4, 4), Tcw relative
+    to window frame 0).  Returns (H_init (W-1, K, 4, 4), H_valid (W-1, K),
+    {(pair, slot): record index})."""
+    Wn = len(rows)
+    H_init = np.tile(np.eye(4, dtype=np.float32), (Wn - 1, K, 1, 1))
+    H_valid = np.zeros((Wn - 1, K), bool)
+    rec_idx = {(rec.frame, rec.sem_label): i for i, rec in enumerate(obj_records)}
+    used = {}
+    for f in range(Wn - 1):
+        for k in range(K):
+            i = rec_idx.get((rows[f + 1], k + 1))
+            if i is None or obj_records[i].P_lc is None:
+                continue
+            H_init[f, k] = np.linalg.inv(poses_rel[f + 1]) @ obj_records[i].P_lc @ poses_rel[f]
+            H_valid[f, k] = True
+            used[(f, k)] = i
+    return H_init, H_valid, used
 
 
 @dataclasses.dataclass
@@ -179,8 +204,6 @@ class MultiMotSystem:
                  backend: Optional[str] = None, match_backend: str = "auto"):
         be = cfg.backend
         for asked, what, item in (
-            (be.window_refine, "backend.window_refine (trailing-window BA)", 14),
-            (be.joint_window_refine, "backend.joint_window_refine (joint ego+object BA)", 14),
             (enable_loop_closing and enable_keyframes, "enable_loop_closing", 15),
             (discover_objects, "discover_objects (mask-free object discovery)", 18),
         ):
@@ -232,6 +255,11 @@ class MultiMotSystem:
         self.n_lm_dispatched = 0        # TrackLocalMap refinements run
         self.lm_accepted_frames: List[int] = []   # frames whose refinement was applied
         self.n_relocalized = 0          # LOST frames rescued by relocalization
+        # counters of the trailing-window BA, and joint window BA runs
+        self.n_win_dispatched = 0       # trailing-window refinements run
+        self.win_accepted_frames: List[int] = []  # frames whose window was committed
+        self.n_joint_refines = 0
+        self._win: List[dict] = []      # the trailing window's device tensors
         # per-stage wall seconds (a list per stage name)
         self.stage_times: Dict[str, List[float]] = {}
         self.keyframes = (
@@ -281,6 +309,8 @@ class MultiMotSystem:
                 "velocity": self._velocity,
                 "corr": self._corr,
                 "keyframes": self.keyframes.frames if self.keyframes else None,
+                "win": [{k: (v if k == "row" else v.cpu().numpy()) for k, v in w.items()}
+                        for w in self._win],
             }, f)
 
     def load_checkpoint(self, path):
@@ -305,6 +335,8 @@ class MultiMotSystem:
             self.keyframes.frames = d["keyframes"]
             self.keyframes._version += 1
             self.keyframes._struct_version += 1
+        self._win = [{k: (v if k == "row" else torch.from_numpy(v).to(self.device))
+                      for k, v in w.items()} for w in d.get("win", [])]
         self._feat_cache = None
         self._Tcw_last_h = (self._ctx.Tcw_last.cpu().numpy().astype(np.float32)
                             if self._ctx is not None else np.eye(4, dtype=np.float32))
@@ -357,6 +389,7 @@ class MultiMotSystem:
             noise = (self._noise_gen
                      if cfg.solver.depth_noise or cfg.solver.flow_outliers else None)
             self._last_obs = tracker.first_step(gray, depth, flow, sem, gt, cfg, noise)
+            self._push_window(gray, depth, flow, sem, 0)
             self._frame_idx += 1
             self.map.frame_times.append(time.perf_counter() - t0)
             return None
@@ -371,9 +404,11 @@ class MultiMotSystem:
                 feats = self._frame_features(fd)
         pend = {
             "result": result, "new_ctx": new_ctx, "fd": fd, "frame_idx": self._frame_idx,
+            "gray": gray, "depth": depth, "flow": flow, "sem": sem,
             "feats": feats,
             "corr": None,          # captured in _dispatch_refine, after the pending drain
-            "refine": None, "use_lm": False,
+            "refine": None, "use_lm": False, "use_win": False,
+            "win_after": None, "Twc0_h": None,
         }
         # the device odometry chain advances at dispatch time; host
         # corrections enter the refinement as ``corr`` and the record
@@ -416,27 +451,53 @@ class MultiMotSystem:
         return None
 
     def _dispatch_refine(self, pend):
-        """Run the fused local-map refinement of a frame whose pair solve
-        is done.  In pipelined mode this runs after the previous frame
-        drained, so every frame chains from the newest correction."""
+        """Run the fused local-map and trailing-window refinement of a frame
+        whose pair solve is done.  In pipelined mode this runs after the
+        previous frame drained, so every frame chains from the newest
+        correction and the window's earlier rows exist."""
         be = self.cfg.backend
         pend["corr"] = self._corr.copy()
         if not be.fused_refine:
             return
         use_lm = bool(be.track_local_map and self.keyframes is not None
                       and self.keyframes.frames)
-        pend["use_lm"] = use_lm
-        if not use_lm:
+        win_after = None
+        if be.window_refine or be.joint_window_refine:
+            # the frame's trajectory row is its frame index (one row per frame)
+            win_after = (self._win + [{"gray": pend["gray"], "depth": pend["depth"],
+                                       "flow": pend["flow"], "sem": pend["sem"],
+                                       "row": pend["frame_idx"]}])[-be.window_size:]
+        use_win = bool(be.window_refine and win_after is not None
+                       and len(win_after) == be.window_size)
+        pend.update(use_lm=use_lm, use_win=use_win, win_after=win_after)
+        if not (use_lm or use_win):
             return
-        uv_c, desc_c, valid_c, z_c = pend["feats"]
-        Xw_m, desc_m, valid_m = self.keyframes.local_map(n_kf=be.local_map_kfs)
-        self.n_lm_dispatched += 1
-        with self._stage("local_map"):
-            pend["refine"] = live_refine_step(
-                pend["result"], uv_c, desc_c, valid_c, z_c, Xw_m, desc_m, valid_m,
-                torch.from_numpy(pend["corr"]).to(self.device), self.cfg, use_lm, False,
-                self.min_inliers, match_backend=self.match_backend,
-            )
+        feats, lmap = (None,) * 4, (None,) * 3
+        if use_lm:
+            feats = pend["feats"]
+            lmap = self.keyframes.local_map(n_kf=be.local_map_kfs)
+            self.n_lm_dispatched += 1
+        poses_rel_prev = torch.zeros((0, 4, 4))
+        Twc0_h = np.eye(4, dtype=np.float32)
+        grays = depth0 = flows = sems = None
+        if use_win:
+            rows_prev = [w["row"] for w in win_after[:-1]]
+            Twc0_h = np.asarray(self.map.camera_poses[rows_prev[0]], np.float32)
+            poses_rel_prev = torch.from_numpy(np.stack([
+                np.linalg.inv(self.map.camera_poses[r]).astype(np.float32) @ Twc0_h
+                for r in rows_prev]))
+            grays = torch.stack([w["gray"] for w in win_after])
+            flows = torch.stack([w["flow"] for w in win_after[:-1]])
+            sems = torch.stack([w["sem"] for w in win_after])
+            depth0 = win_after[0]["depth"]
+            self.n_win_dispatched += 1
+        pend["Twc0_h"] = Twc0_h
+        dev = lambda a: torch.as_tensor(a).to(self.device)
+        pend["refine"] = live_refine_step(
+            pend["result"], *feats, *lmap, dev(poses_rel_prev), dev(Twc0_h),
+            grays, depth0, flows, sems, dev(pend["corr"]), self.cfg, use_lm, use_win,
+            self.min_inliers, match_backend=self.match_backend, stage=self._stage,
+        )
 
     def _process_frame(self, pend):
         """Fetch one frame's solve and refinement and run every host-side
@@ -450,14 +511,18 @@ class MultiMotSystem:
             with self._stage("kf_consume"):
                 self._consume_kf_async(pend)
         corr = pend["corr"]
-        use_lm = pend["use_lm"]
+        use_lm, use_win = pend["use_lm"], pend["use_win"]
+        win_after, Twc0_h = pend["win_after"], pend["Twc0_h"]
         new_ctx = pend["new_ctx"]
         with self._stage("fetch_result"):
             result = state.result_to_numpy(pend["result"])
-            accept_lm, T1 = False, None
+            accept_lm, T1, poses_out, n_live = False, None, None, 0
             if pend["refine"] is not None:
-                T1 = pend["refine"].T1.cpu().numpy().astype(np.float32)
-                accept_lm = bool(pend["refine"].accept_lm)
+                ref = pend["refine"]
+                T1 = ref.T1.cpu().numpy().astype(np.float32)
+                accept_lm = bool(ref.accept_lm)
+                poses_out = ref.poses_out.cpu().numpy().astype(np.float32)
+                n_live = int(ref.n_live)
 
         # the raw device chain's pose, and its correction into the recorded
         # world frame (identity in synchronous mode)
@@ -506,17 +571,42 @@ class MultiMotSystem:
                 self._velocity = (T1 @ np.linalg.inv(Tcw_last)).astype(np.float32)
                 _fix_ctx(Tcw_last=T1, T_velocity=self._velocity)
                 self.lm_accepted_frames.append(frame_idx)
-        elif be.track_local_map and self.keyframes is not None and self.keyframes.frames \
-                and self.state == self.STATE_OK:
-            with self._stage("local_map"):
-                T_lm = self._track_local_map(Tcw_online, pend["feats"], fd)
-            if T_lm is not None:
-                result = result._replace(Tcw_cur=T_lm)
-                self._velocity = (T_lm @ np.linalg.inv(Tcw_last)).astype(np.float32)
-                _fix_ctx(Tcw_last=T_lm, T_velocity=self._velocity)
-                self.lm_accepted_frames.append(frame_idx)
-        with self._stage("record"):
-            self._record(result, fd, Tcw_online=Tcw_online, frame_idx=frame_idx)
+            with self._stage("record"):
+                self._record(result, fd, Tcw_online=Tcw_online, frame_idx=frame_idx)
+                self._push_window(pend["gray"], pend["depth"], pend["flow"], pend["sem"],
+                                  len(self.map.camera_poses) - 1)
+            if (flow_ok and use_win and n_live >= be.min_window_tracks
+                    and np.isfinite(poses_out).all()):
+                # commit the refined window rows (anchored at its frame 0)
+                Tcw0_abs = np.linalg.inv(Twc0_h).astype(np.float32)
+                for f, r in enumerate(w["row"] for w in win_after):
+                    self.map.camera_poses[r] = np.linalg.inv(
+                        poses_out[f] @ Tcw0_abs).astype(np.float32)
+                refined_last = (poses_out[-1] @ Tcw0_abs).astype(np.float32)
+                result = result._replace(Tcw_cur=refined_last)
+                self._after_window_commit(refined_last, _fix_ctx)
+                self.win_accepted_frames.append(frame_idx)
+        else:
+            if (be.track_local_map and self.keyframes is not None and self.keyframes.frames
+                    and self.state == self.STATE_OK):
+                with self._stage("local_map"):
+                    T_lm = self._track_local_map(Tcw_online, pend["feats"], fd)
+                if T_lm is not None:
+                    result = result._replace(Tcw_cur=T_lm)
+                    self._velocity = (T_lm @ np.linalg.inv(Tcw_last)).astype(np.float32)
+                    _fix_ctx(Tcw_last=T_lm, T_velocity=self._velocity)
+                    self.lm_accepted_frames.append(frame_idx)
+            with self._stage("record"):
+                self._record(result, fd, Tcw_online=Tcw_online, frame_idx=frame_idx)
+                self._push_window(pend["gray"], pend["depth"], pend["flow"], pend["sem"],
+                                  len(self.map.camera_poses) - 1)
+            if be.window_refine and self.state == self.STATE_OK:
+                with self._stage("window_refine"):
+                    refined_last = self._refine_window()
+                if refined_last is not None:
+                    result = result._replace(Tcw_cur=refined_last)
+                    self._after_window_commit(refined_last, _fix_ctx)
+                    self.win_accepted_frames.append(frame_idx)
 
         if self.enable_keyframes and self.state == self.STATE_OK:
             if self.pipelined and be.async_keyframes:
@@ -526,8 +616,15 @@ class MultiMotSystem:
                     self._dispatch_kf_cadence(pend, np.asarray(result.Tcw_cur), frame_idx)
             else:
                 with self._stage("keyframe_add"):
-                    self._maybe_add_keyframe(fd, np.asarray(result.Tcw_cur), pend["feats"],
-                                             frame_idx)
+                    added = self._maybe_add_keyframe(fd, np.asarray(result.Tcw_cur),
+                                                     pend["feats"], frame_idx)
+                if added and be.joint_window_refine:
+                    # joint ego+object window BA at keyframe cadence
+                    with self._stage("joint_ba"):
+                        joint_last = self._refine_joint_window()
+                    if joint_last is not None:
+                        result = result._replace(Tcw_cur=joint_last)
+                        self._after_window_commit(joint_last, _fix_ctx)
         if self.state == self.STATE_LOST:
             if self.pipelined and np.isfinite(Tcw_dev_flow).all():
                 # the next frame is already in flight on the raw chain:
@@ -629,12 +726,16 @@ class MultiMotSystem:
         if stacked is not None:
             sim_handle = _batched_match_counts(desc, valid, *stacked)
             adj_handle = _adjacent_match_counts(*stacked)
+        joint = None
+        if self.cfg.backend.joint_window_refine:
+            joint = self._refine_joint_window(dispatch_only=True)
         self._kf_async = dict(
             frame_idx=frame_idx, Tcw=np.asarray(Tcw_cur, np.float32).copy(),
             desc=desc_k, f32=f32, n=n, fuse=fuse_handle, fuse_prevs=fuse_prevs,
             sim=sim_handle, adj=adj_handle, n_old=len(self.keyframes.frames),
             # score index -> keyframe object (membership may churn before consumption)
             frames_ref=list(self.keyframes.frames),
+            joint=joint,
         )
         self._last_kf_index = frame_idx
 
@@ -650,6 +751,8 @@ class MultiMotSystem:
         self._Tcw_last_h = (self._Tcw_last_h @ D).astype(np.float32)
         if pend is not None and pend.get("corr") is not None:
             pend["corr"] = (pend["corr"] @ D).astype(np.float32)
+        if pend is not None and pend.get("Twc0_h") is not None:
+            pend["Twc0_h"] = (Dinv @ pend["Twc0_h"]).astype(np.float32)
 
     def _consume_kf_async(self, pend):
         """Fetch and apply one deferred keyframe-cadence bundle.  ``pend``
@@ -673,6 +776,11 @@ class MultiMotSystem:
             counts = np.concatenate([a["adj"].cpu().numpy()[: max(K_old - 1, 0)],
                                      a["sim"].cpu().numpy()[K_old - 1: K_old]])
             self.keyframes.cull_redundant(counts=counts)
+        if a["joint"] is not None:
+            # object measurements only (see _joint_window_apply)
+            handle, jctx = a["joint"]
+            self._joint_window_apply(jctx, *(x.cpu().numpy() for x in handle),
+                                     commit_poses=False)
 
     def _maybe_add_keyframe(self, fd: FrameData, Tcw: np.ndarray, feats=None,
                             frame_idx=None) -> bool:
@@ -697,6 +805,122 @@ class MultiMotSystem:
             kfs.fuse_and_cull(cam.fx, cam.fy, cam.cx, cam.cy, cam.width, cam.height)
             kfs.cull_redundant()
         return added
+
+    # ------------------------------------------------------------------
+    # The trailing window: its frames' device tensors, the unfused window
+    # BA and the joint ego+object window BA.
+
+    def _push_window(self, gray, depth, flow, sem, traj_row: int):
+        be = self.cfg.backend
+        if not (be.window_refine or be.joint_window_refine):
+            return
+        self._win.append({"gray": gray, "depth": depth, "flow": flow, "sem": sem,
+                          "row": traj_row})
+        if len(self._win) > be.window_size:
+            self._win.pop(0)
+
+    def _window_poses(self):
+        """The window's rows, its Tcw relative to its frame 0 (W, 4, 4), and
+        frame 0's absolute Tcw."""
+        rows = [w["row"] for w in self._win]
+        Tcw_abs = [np.linalg.inv(self.map.camera_poses[r]).astype(np.float32) for r in rows]
+        Twc0 = np.linalg.inv(Tcw_abs[0]).astype(np.float32)
+        return rows, np.stack([T @ Twc0 for T in Tcw_abs]), Tcw_abs[0]
+
+    def _window_tensors(self):
+        """(grays, depths, flows, sems) stacked over the window."""
+        return (torch.stack([w["gray"] for w in self._win]),
+                torch.stack([w["depth"] for w in self._win]),
+                torch.stack([w["flow"] for w in self._win[:-1]]),
+                torch.stack([w["sem"] for w in self._win]))
+
+    def _after_window_commit(self, Tcw_last: np.ndarray, fix_ctx):
+        """The current pose moved with a window commit: the context's last
+        pose and the velocity follow it."""
+        fix_ctx(Tcw_last=Tcw_last)
+        if len(self.map.camera_poses) >= 2:
+            # Tcw_cur @ Twc_prev (camera_poses stores Twc)
+            self._velocity = (Tcw_last @ self.map.camera_poses[-2]).astype(np.float32)
+            fix_ctx(T_velocity=self._velocity)
+
+    def _refine_window(self) -> Optional[np.ndarray]:
+        """Trailing-window BA over the buffered frames (the unfused path).
+        Rewrites the window's rows of ``map.camera_poses`` and returns the
+        refined current Tcw, or None below ``min_window_tracks`` live tracks
+        or on a non-finite result."""
+        from multimot_track_tpu_torch.pipeline import window_refine
+
+        be = self.cfg.backend
+        if len(self._win) < be.window_size:
+            return None
+        rows, poses_rel, Tcw0_abs = self._window_poses()
+        grays, depths, flows, sems = self._window_tensors()
+        self.n_win_dispatched += 1
+        poses_out, n_live = window_refine.refine_trailing_window(
+            torch.from_numpy(poses_rel).to(self.device), grays, depths[0], flows, sems, self.cfg)
+        if int(n_live) < be.min_window_tracks:
+            return None
+        poses_out = poses_out.cpu().numpy()
+        if not np.isfinite(poses_out).all():
+            return None
+        for f, r in enumerate(rows):
+            self.map.camera_poses[r] = np.linalg.inv(poses_out[f] @ Tcw0_abs).astype(np.float32)
+        return (poses_out[-1] @ Tcw0_abs).astype(np.float32)
+
+    def _refine_joint_window(self, dispatch_only: bool = False):
+        """Joint ego + multi-object BA over the trailing window, at keyframe
+        cadence, initialised from the online poses and the records' object
+        measurements (P_lc) re-anchored in the window's frame.  Skipped on a
+        window that is not full, spans a LOST gap or holds no object.
+
+        ``dispatch_only`` (async cadence): returns ((poses, motions) device
+        tensors, context) for :meth:`_joint_window_apply`; otherwise applies
+        the result and returns the refined current Tcw or None."""
+        from multimot_track_tpu_torch.pipeline import window_refine
+
+        if len(self._win) < self.cfg.backend.window_size:
+            return None
+        rows, poses_rel, Tcw0_abs = self._window_poses()
+        # a LOST gap breaks the pair <-> stored-flow alignment
+        if any(rows[i + 1] - rows[i] != 1 for i in range(len(rows) - 1)):
+            return None
+        H_init, H_valid, used = joint_motion_init(self.map.obj_records, rows, poses_rel,
+                                                  self.cfg.padding.k_obj_max)
+        if not used:
+            return None     # an ego-only window is the per-frame refiner's job
+        self.n_joint_refines += 1
+        dev = lambda a: torch.from_numpy(a).to(self.device)
+        poses_out, motions_out, _ = window_refine.refine_joint_window(
+            dev(poses_rel), dev(H_init), dev(H_valid), *self._window_tensors(), self.cfg)
+        jctx = dict(rows=rows, poses_rel=poses_rel, Tcw0_abs=Tcw0_abs, used=used)
+        if dispatch_only:
+            return (poses_out, motions_out), jctx
+        return self._joint_window_apply(jctx, poses_out.cpu().numpy(),
+                                        motions_out.cpu().numpy())
+
+    def _joint_window_apply(self, jctx, poses_out: np.ndarray, motions_out: np.ndarray,
+                            commit_poses: bool = True) -> Optional[np.ndarray]:
+        """Gates and commits of a joint-window result: rejected when
+        non-finite or when a pose moves by more than ``joint_max_corr_m``.
+        Commits the window's rows (unless ``commit_poses`` is False, as on
+        the async cadence, where the per-frame window refiner owns the rows)
+        and the records' P_lc; returns the refined Tcw of the last row."""
+        be = self.cfg.backend
+        rows, poses_rel, Tcw0_abs = jctx["rows"], jctx["poses_rel"], jctx["Tcw0_abs"]
+        if not (np.isfinite(poses_out).all() and np.isfinite(motions_out).all()):
+            return None
+        for f in range(len(rows)):
+            d = poses_out[f] @ np.linalg.inv(poses_rel[f])
+            if np.linalg.norm(d[:3, 3]) > be.joint_max_corr_m:
+                return None
+        if commit_poses:
+            for f, r in enumerate(rows):
+                self.map.camera_poses[r] = np.linalg.inv(poses_out[f] @ Tcw0_abs).astype(
+                    np.float32)
+        for (f, k), i in jctx["used"].items():
+            self.map.obj_records[i].P_lc = (poses_out[f + 1] @ motions_out[f, k]
+                                            @ np.linalg.inv(poses_out[f])).astype(np.float32)
+        return (poses_out[-1] @ Tcw0_abs).astype(np.float32)
 
     def _try_relocalize(self, feats, frame_idx: int):
         if feats is None or not self.keyframes.frames:   # no features without keyframes

@@ -44,8 +44,8 @@ SEED = 0
 
 def slice_config(C, cam, **backend):
     c = small_config(C, cam)
-    return dataclasses.replace(c, backend=dataclasses.replace(
-        c.backend, window_refine=False, joint_window_refine=False, **backend))
+    backend = {"window_refine": False, "joint_window_refine": False, **backend}
+    return dataclasses.replace(c, backend=dataclasses.replace(c.backend, **backend))
 
 
 JCFG = slice_config(jconfig, synth_camera_config())
@@ -71,22 +71,32 @@ def run(system, frames, lost_last=False):
     return [r for r in out if r is not None]
 
 
-def run_jax(cfg, frames, **kw):
-    """The JAX system, recording the device's local-map accept flags."""
-    flags = []
+def run_jax(cfg, frames, lost_last=False, **kw):
+    """The JAX system; returns it, its results and, per fused refinement,
+    (frame, local-map accept, window committed unless the frame is LOST),
+    read from the transfer vector the JAX package splits."""
+    log, cur = [], {}
     split = jlive_refine.split_refined
+    s = JSystem(cfg, seed=SEED, keyframe_gap=1, enable_loop_closing=False, **kw)
+    process = s._process_frame
+
+    def processing(pend):
+        cur["frame"] = pend["frame_idx"]
+        return process(pend)
 
     def recording(flat, cfg_, window):
         out = split(flat, cfg_, window)
-        flags.append(out[2])
+        _, _, accept_lm, _, poses_out, n_live = out
+        committed = bool(window and n_live >= cfg_.backend.min_window_tracks
+                         and np.isfinite(poses_out).all())
+        log.append((cur["frame"], accept_lm, committed))
         return out
 
+    s._process_frame = processing
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jlive_refine, "split_refined", recording)
-        lost_last = kw.pop("lost_last", False)
-        s = JSystem(cfg, seed=SEED, keyframe_gap=1, enable_loop_closing=False, **kw)
         results = run(s, frames, lost_last)
-    return s, results, flags
+    return s, results, log
 
 
 def run_port(cfg, frames, lost_last=False, **kw):
@@ -124,19 +134,19 @@ def frames():
 
 @pytest.fixture(scope="module")
 def sync_runs(frames):
-    j, rj, flags = run_jax(JCFG, frames)
+    j, rj, log = run_jax(JCFG, frames)
     t, rt = run_port(TCFG, frames)
-    return j, rj, flags, t, rt
+    return j, rj, log, t, rt
 
 
 def test_live_system_sync_matches_jax(sync_runs):
-    j, rj, flags, t, rt = sync_runs
+    j, rj, log, t, rt = sync_runs
     assert len(rt) == len(rj) == 4
     compare_systems(t, j)
     assert len(t.keyframes.frames) == len(j.keyframes.frames) == 4
     # every frame after the first keyframe refined against the local map
-    assert t.n_lm_dispatched == len(flags) == 3
-    assert len(t.lm_accepted_frames) == int(np.sum(flags)) > 0
+    assert t.n_lm_dispatched == len(log) == 3
+    assert t.lm_accepted_frames == [f for f, a, _ in log if a] != []
     st, sj = t.summary(), j.summary()
     for k in ("cam_t_rpe_rel_mean", "ego_ate_rmse_m", "ego_ate_rmse_raw_m",
               "cam_t_rpe_refined_mean", "obj_t_rpe_refined_mean"):
@@ -224,17 +234,13 @@ def test_checkpoint_resume_and_savers(frames, sync_runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(cfg=dict(window_refine=True)), "14"),
-    (dict(cfg=dict(joint_window_refine=True)), "14"),
     (dict(enable_loop_closing=True), "15"),
     (dict(discover_objects=True), "18"),
 ])
 def test_unported_backend_features_raise(kw, item):
-    cfg = dataclasses.replace(TCFG, backend=dataclasses.replace(TCFG.backend,
-                                                                **kw.pop("cfg", {})))
     kw.setdefault("enable_loop_closing", False)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        TSystem(cfg, **kw)
+        TSystem(TCFG, **kw)
 
 
 def test_pipelined_requires_fused_refine():
@@ -244,8 +250,8 @@ def test_pipelined_requires_fused_refine():
 
 
 def test_live_path_runs_without_jax():
-    """Importing the live system and running it, pipelined and through a
-    relocalization, loads no jax."""
+    """Importing the live system and running it with the window and joint
+    window BA, pipelined and through a relocalization, loads no jax."""
     code = (
         "import sys, dataclasses, torch\n"
         "torch.set_num_threads(1)\n"
@@ -262,14 +268,16 @@ def test_live_path_runs_without_jax():
         "    solver=dataclasses.replace(D.solver, ransac_iters=16, obj_ransac_iters=16,\n"
         "        obj_ensemble_seeds=1, obj_reclassify_rounds=1, cam_lm_iters=5,\n"
         "        obj_lm_iters=5),\n"
-        "    backend=dataclasses.replace(D.backend, window_refine=False,\n"
-        "        joint_window_refine=False))\n"
+        "    backend=dataclasses.replace(D.backend, window_size=2, n_window_tracks=512,\n"
+        "        joint_static_max=256))\n"
         "fr = make_multimover_frames(n_frames=3)\n"
         "class Seq(list):\n"
         "    load_frame = list.__getitem__\n"
         "s = run_sequence(Seq(fr), cfg, keyframe_gap=1, enable_loop_closing=False,\n"
         "                 pipelined=True)\n"
         "assert len(s.map.camera_poses) == 3 and s.keyframes.frames\n"
+        "assert s.n_win_dispatched == 2 and s.n_joint_refines > 0, "
+        "(s.n_win_dispatched, s.n_joint_refines)\n"
         "s2 = MultiMotSystem(cfg, keyframe_gap=1, enable_loop_closing=False)\n"
         "s2.track_rgbd(fr[0]); s2.track_rgbd(fr[1])\n"
         "s2.min_inliers = 10 ** 6\n"

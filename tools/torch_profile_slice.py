@@ -11,9 +11,11 @@ Renders make_junction_frames(N) at the KITTI camera, runs
     wall clock (the device's idle share) and the top kernels and ops by
     device time.  The Chrome trace goes to ``--out``.
 Then the same profile for the live system (``MultiMotSystem``, synchronous,
-window BA and loop closing off, after a warm-up run), with its per-stage
-host times.  Prints the card's name and power limit first.  Needs a CUDA
-device.
+at DEFAULT_CONFIG with the trailing-window and joint window BA on and loop
+closing off, after a warm-up run), with its per-stage host times and the
+device time of the two window solvers (``torch.profiler.record_function``
+ranges around ``refine_trailing_window`` and ``refine_joint_window``).
+Prints the card's name and power limit first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -80,15 +82,25 @@ def main() -> int:
     _report(prof, wall, os.path.join(args.out, "trace.json"), "profiled batched run")
 
     # ---- the live system: warm-up, then one profiled synchronous run ----
-    import dataclasses
+    from torch.profiler import record_function
 
+    from multimot_track_tpu_torch.pipeline import window_refine
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
 
-    live_cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
-        cfg.backend, window_refine=False, joint_window_refine=False))
+    def ranged(fn, name):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    # the live path calls both through the module, so the ranges cover it
+    window_refine.refine_trailing_window = ranged(window_refine.refine_trailing_window,
+                                                  "trailing_window_ba")
+    window_refine.refine_joint_window = ranged(window_refine.refine_joint_window,
+                                               "joint_window_ba")
 
     def live_run():
-        s = MultiMotSystem(live_cfg, seed=0, enable_loop_closing=False, device=dev)
+        s = MultiMotSystem(cfg, seed=0, enable_loop_closing=False, device=dev)
         for fd in frames:
             s.track_rgbd(fd)
         torch.cuda.synchronize()
@@ -99,19 +111,33 @@ def main() -> int:
         t0 = time.perf_counter()
         s = live_run()
         wall = (time.perf_counter() - t0) * 1e3
-    _report(prof, wall, os.path.join(args.out, "trace_live.json"),
-            f"profiled live run ({len(frames)} frames)")
+    ranges = ("trailing_window_ba", "joint_window_ba")
+    busy = _report(prof, wall, os.path.join(args.out, "trace_live.json"),
+                   f"profiled live run ({len(frames)} frames)", ranges)
+    for name in ranges:
+        # the host-side ranges; each one's device time sums the kernels of
+        # the ops inside it
+        rs = [e for e in prof.events()
+              if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+        dev_ms = sum(e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total for e in rs) / 1e3
+        host_ms = sum(e.cpu_time_total for e in rs) / 1e3
+        print(f"{name}: {len(rs)} calls, device {dev_ms:.1f} ms "
+              f"({100 * dev_ms / busy:.1f} % of device busy), host {host_ms:.1f} ms "
+              f"({100 * host_ms / wall:.1f} % of the wall clock)", flush=True)
     print(f"live stages (host clock, profiled): {s.stage_report()}", flush=True)
     return 0
 
 
-def _report(prof, wall, trace_path, what):
-    """Device-busy share of ``wall`` and the top ops by device time."""
+def _report(prof, wall, trace_path, what, ranges=()):
+    """Device-busy share of ``wall`` and the top ops by device time.  The
+    device-side spans of the ``record_function`` ranges named in ``ranges``
+    are not device work and stay out of the busy time."""
     import torch
 
     prof.export_chrome_trace(trace_path)
     events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA]
+              if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in ranges]
     busy = _union_ms([(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
                       for e in events])
     print(f"{what}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
@@ -119,6 +145,7 @@ def _report(prof, wall, trace_path, what):
     ka = prof.key_averages()
     attr = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
     print(ka.table(sort_by=attr, row_limit=25, max_name_column_width=60), flush=True)
+    return busy
 
 
 def _union_ms(intervals):
