@@ -8,11 +8,15 @@ Phases, in order; any failure exits non-zero before the result lines:
   2. build kernels K1 (csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu)
      with nvcc, both compilers started together; print the build times and
      the compilers' register / shared-memory reports;
-  3. K1 against its plain torch version on the card, at the main path's
-     stage shapes: 2 instances x N=2048 with point weights (a camera stage)
-     and 18 instances x N=4096 (an object stage), inputs from a numpy seed;
-     ms per call of both (wrapper included: input planes, launch), the
-     median of rounds of back-to-back calls;
+  3. K1 against its plain torch version on the card at the five path
+     shapes (live camera 1 x 2048 and batched camera 11 x 2048 with point
+     weights, live object 18 x 4096, batched object 198 x 4096, and a
+     two-instance camera stage, 2 x 2048), inputs from a numpy seed; per shape the bare launch
+     (outputs allocated once; CUDA events around back-to-back launches, and
+     the profiler's kernel time), the wrapper-included call, the plain
+     version, the LM iterations run (mean, max), the flop / byte bound and
+     the share of it, and the device kernels the profiler sees per wrapper
+     call; ``--k1-only`` stops after this phase;
   4. the slice: ``run_sequence_batched`` at DEFAULT_CONFIG (1242x375, 2048
      static / 8192 object points, 8 label slots, 6 solved, 3 seeds, 2
      reclassify rounds) on make_junction_frames(12) (7 movers per frame),
@@ -23,7 +27,8 @@ Phases, in order; any failure exits non-zero before the result lines:
      shapes: 3 x 1024 local-map queries against 1024 keypoints (r = 12) and
      the fuse scan's 4 x 1024 against 1024 (r = 6); seeded inputs with
      duplicate descriptors (ties), invalid rows and one all-masked row;
-     best / second / index must be exactly equal; ms per call of both;
+     best / second / index must be exactly equal; ms per call of both, the
+     profiler's device time and the bound from the gated pairs;
   6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG (trailing-window
      BA every frame, joint ego+object window BA at keyframe cadence,
      keyframes every 5 frames, fused TrackLocalMap, fusion and culling,
@@ -130,29 +135,89 @@ def time_ms(fn, rounds, reps):
     return float(np.median(ts))
 
 
+# K1's bound, counted from the algorithm (csrc/flow_ba_lm.cu's note has the
+# breakdown): float32 operations per point per LM iteration (pass 1:
+# linearise, Schur terms, 21 + 6 products; pass 2: back-substitution, trial
+# objective), and once per solve (back-projection, lambda seed, initial
+# objective; final chi2 and inlier sums)
+K1_FLOPS_PER_POINT_ITER = 295
+K1_FLOPS_PER_POINT_ONCE = 120
+H100_FP32_FLOPS = 67e12        # published peak outside the tensor cores
+H100_BYTES_PER_S = 3.35e12     # HBM3
+
+
+def k1_stages():
+    """K1's five path shapes: (name, M, N, weighted, camera stage)."""
+    return (("live camera 1 x 2048 (point weights)", 1, 2048, True, True),
+            ("live object 18 x 4096", 18, 4096, False, False),
+            ("batched camera 11 x 2048 (point weights)", 11, 2048, True, True),
+            ("batched object 198 x 4096", 198, 4096, False, False),
+            ("two-instance camera 2 x 2048 (point weights)", 2, 2048, True, True))
+
+
+def k1_bound_us(args, out, iters):
+    """The least time the card could take for one solve on these inputs:
+    the larger of the flops the LM loop needs (its valid points at the
+    iterations each instance ran, every point once), over the fp32 peak,
+    and each input read once and each output written once, over the memory
+    rate.  Returns (us, 'bytes' or 'operations', flop us, byte us)."""
+    import torch
+
+    M, N = args["obs"].shape[:2]
+    n_valid = (args["valid"] & (args["depth"] > 0)).sum(1).float().cpu()   # the LM skips the rest
+    flops = K1_FLOPS_PER_POINT_ONCE * M * N + K1_FLOPS_PER_POINT_ITER * float((n_valid * iters).sum())
+    tensors_in = [v for v in args.values() if isinstance(v, torch.Tensor)]
+    byts = sum(t.numel() * t.element_size() for t in tensors_in)
+    byts += sum(t.numel() * t.element_size() for t in out if isinstance(t, torch.Tensor))
+    t_ops, t_bytes = flops / H100_FP32_FLOPS, byts / H100_BYTES_PER_S
+    return (1e6 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e6 * t_ops, 1e6 * t_bytes)
+
+
+def device_kernels(fn, reps=10):
+    """(device kernels per call, device us per call) of ``fn`` over ``reps``
+    calls under the profiler (CUPTI's kernel records), after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(ev) / reps, sum(e.time_range.elapsed_us() for e in ev) / reps
+
+
 def phase_kernel_vs_plain(dev):
     import torch
 
     from multimot_track_tpu_torch.config import SolverConfig
-    from multimot_track_tpu_torch.solvers import flow_ba
+    from multimot_track_tpu_torch.solvers import flow_ba, flow_ba_cuda
     from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
 
+    lib = flow_ba_cuda._lib()
+    per_sm = {P: lib.flow_ba_lm_ctas_per_sm(P) for P in flow_ba_cuda.CTAS_PER_SM}
+    log(f"[K1] CTAs per SM by held points per thread, as the card reports them: {per_sm} "
+        f"(the cluster plan assumes {flow_ba_cuda.CTAS_PER_SM})")
+    if per_sm != flow_ba_cuda.CTAS_PER_SM:
+        raise SystemExit("K1's occupancy differs from what its cluster plan assumes")
     sol = SolverConfig()
     rng = np.random.default_rng(0)
-    stages = []
-    cam = make_flow_ba_problem(rng, 2, 2048, np.array([0.004, 0.004, 0.004, 0.1, 0.05, 0.5]))
-    cam["point_weight"] = 1.0 / (1.0 + (cam["depth"] / sol.cam_depth_weight_z0) ** 2)
-    stages.append(("camera 2 x 2048 (point weights)", cam, flow_ba.FlowBAParams(
-        reproj_info=sol.reproj_info, prior_info=sol.cam_flow_prior_info,
-        rp_thres=sol.cam_rp_thres, iters=sol.cam_lm_iters, tau=sol.lm_tau)))
-    obj = make_flow_ba_problem(rng, 18, 4096, np.array([0.01, 0.01, 0.01, 0.2, 0.05, 0.4]))
-    obj["point_weight"] = None
-    stages.append(("object 18 x 4096", obj, flow_ba.FlowBAParams(
-        reproj_info=sol.reproj_info, prior_info=sol.obj_flow_prior_info,
-        rp_thres=sol.obj_rp_thres, iters=sol.obj_lm_iters, tau=sol.lm_tau)))
-
+    cam_xi = np.array([0.004, 0.004, 0.004, 0.1, 0.05, 0.5])
+    obj_xi = np.array([0.01, 0.01, 0.01, 0.2, 0.05, 0.4])
     figures = []
-    for name, prob, params in stages:
+    for name, M, N, weighted, is_cam in k1_stages():
+        prob = make_flow_ba_problem(rng, M, N, cam_xi if is_cam else obj_xi)
+        prob["point_weight"] = (1.0 / (1.0 + (prob["depth"] / sol.cam_depth_weight_z0) ** 2)
+                                if weighted else None)
+        params = flow_ba.FlowBAParams(
+            reproj_info=sol.reproj_info,
+            prior_info=sol.cam_flow_prior_info if is_cam else sol.obj_flow_prior_info,
+            rp_thres=sol.cam_rp_thres if is_cam else sol.obj_rp_thres,
+            iters=sol.cam_lm_iters if is_cam else sol.obj_lm_iters, tau=sol.lm_tau)
         args = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in prob.items()}
         run_k = lambda: solve_flow_ba_cuda(**args, params=params)
         run_p = lambda: flow_ba.solve_flow_ba(**args, params=params)
@@ -165,14 +230,30 @@ def phase_kernel_vs_plain(dev):
         rel = float(((out_k.mean_reproj - out_p.mean_reproj).abs()
                      / out_p.mean_reproj.abs().clamp(min=1e-12)).max())
         finite = bool(torch.isfinite(out_k.T).all() and torch.isfinite(out_k.chi2).all())
+        bare = flow_ba_cuda._launcher(**args, params=params)
+        iters = bare().float().cpu()
+        torch.cuda.synchronize()
+        ms_bare = time_ms(bare, rounds=5, reps=20)
         ms_k = time_ms(run_k, rounds=5, reps=10)
         ms_p = time_ms(run_p, rounds=3, reps=2)
-        log(f"[K1] {name}: max|dT|={dT:.3e} (atol {T_ATOL}) max|d n_inliers|={dn} "
-            f"(tol {INLIER_TOL}) max rel d mean_reproj={rel:.3e} (rtol {REPROJ_RTOL}) "
-            f"| kernel {ms_k:.4f} ms/launch, plain {ms_p:.4f} ms")
+        n_kern, _ = device_kernels(run_k)
+        _, us_dev = device_kernels(bare)
+        bound_us, bound_by, ops_us, bytes_us = k1_bound_us(args, out_k, iters)
+        log(f"[K1] {name}: cluster plan (C, P) {flow_ba_cuda.cluster_plan(M, N)}; "
+            f"max|dT|={dT:.3e} (atol {T_ATOL}) max|d n_inliers|={dn} "
+            f"(tol {INLIER_TOL}) max rel d mean_reproj={rel:.3e} (rtol {REPROJ_RTOL})")
+        log(f"[K1] {name}: bare launch {ms_bare:.4f} ms (CUDA events), {us_dev / 1e3:.4f} ms "
+            f"(profiler kernel time), wrapper "
+            f"{ms_k:.4f} ms/call, plain {ms_p:.4f} ms | LM iterations mean "
+            f"{float(iters.mean()):.2f} max {int(iters.max())} | bound {bound_us:.2f} us by "
+            f"{bound_by} (flops {ops_us:.3f} us, bytes {bytes_us:.3f} us), "
+            f"{100 * bound_us / (1e3 * ms_bare):.2f} % of bound | {n_kern} device kernel(s) "
+            f"per wrapper call")
         if not (finite and dT <= T_ATOL and dn <= INLIER_TOL and rel <= REPROJ_RTOL):
             raise SystemExit(f"K1 disagrees with its plain version on {name}")
-        figures.append(dict(stage=name, max_abs_err=dT, ms=ms_k, plain_ms=ms_p))
+        figures.append(dict(stage=name, max_abs_err=dT, ms=us_dev / 1e3, events_ms=ms_bare,
+                            wrapper_ms=ms_k, plain_ms=ms_p, bound_ms=bound_us / 1e3,
+                            bound_by=bound_by, kernels_per_call=n_kern))
     return figures
 
 
@@ -308,13 +389,36 @@ def phase_match_kernel(dev):
         ties = int(((bk == sk) & (bk < 1e9)).sum())
         ms_k = time_ms(run_k, rounds=5, reps=20)
         ms_p = time_ms(run_p, rounds=5, reps=5)
+        n_kern, us_dev = device_kernels(run_k)
+        bound_us, bound_by, n_pairs = k2_bound_us(args, (bk, sk, ik), radius)
         log(f"[K2] {name}: {n_diff} differing outputs of {3 * L * N} (must be 0), "
             f"max|d dist| {err:.1f}, {ties} rows with a tied best/second | kernel "
-            f"{ms_k:.4f} ms/call, plain {ms_p:.4f} ms/call")
+            f"{ms_k:.4f} ms/call (wrapper, CUDA events), {us_dev / 1e3:.4f} ms device "
+            f"({n_kern:.0f} kernels, profiler), plain {ms_p:.4f} ms/call | bound "
+            f"{bound_us:.3f} us by {bound_by} ({n_pairs} gated pairs)")
         if n_diff:
             raise SystemExit(f"K2 disagrees with its plain version on {name}")
-        figures.append(dict(stage=name, max_abs_err=err, ms=ms_k, plain_ms=ms_p))
+        figures.append(dict(stage=name, max_abs_err=err, ms=us_dev / 1e3, wrapper_ms=ms_k,
+                            plain_ms=ms_p, bound_ms=bound_us / 1e3, bound_by=bound_by))
     return figures
+
+
+H100_INT8_OPS = 1979e12        # published dense int8 tensor-core peak
+
+
+def k2_bound_us(args, outs, radius):
+    """K2's least time on these inputs: a 256-wide +-1 dot product (512
+    int8 operations) for every valid query / valid reference pair inside
+    the gate, over the int8 peak, against each input read once and each
+    output written once.  Returns (us, 'bytes' or 'operations', pairs)."""
+    import torch
+
+    desc_a, uv_a, va, desc_b, uv_b, vb = args
+    d2 = ((uv_a[..., None, :] - uv_b) ** 2).sum(-1)            # (L, N, M)
+    n_pairs = int(((d2 <= radius * radius) & va[..., None] & vb).sum())
+    byts = sum(t.numel() * t.element_size() for t in (*args, *outs))
+    t_ops, t_bytes = 512 * n_pairs / H100_INT8_OPS, byts / H100_BYTES_PER_S
+    return 1e6 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), n_pairs
 
 
 def live_config(windows: bool = True):
@@ -397,6 +501,8 @@ def phase_live(dev, frames):
             raise SystemExit(f"live {mode}: {len(res)} results for {n - 1} pairs")
         if not np.all(np.isfinite(np.stack(s.map.camera_poses))) or not finite_tree(res[-1]):
             raise SystemExit(f"live {mode}: non-finite output")
+        if mode == "sync" and k1 != 5 * (n - 1):          # five flow-BA stages per pair
+            raise SystemExit(f"live sync: K1 launched {k1} times for {n - 1} pairs")
         if not (k2 == s.n_lm_dispatched + kf.n_fuse_scans and k2 > 0 and k1 > 0):
             raise SystemExit(f"live {mode}: K2 launched {k2} times for "
                              f"{s.n_lm_dispatched} refinements + {kf.n_fuse_scans} fuse scans")
@@ -526,7 +632,7 @@ def phase_window(dev, frames, s):
         raise SystemExit("window tracks: K2 and the plain matcher disagree")
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -553,17 +659,18 @@ def main() -> int:
         for line in kernels.build_log(name).splitlines():
             if "ptxas" in line or "seconds" in line:
                 log(f"[build] {name}: {line.strip()}")
+    k1 = phase_kernel_vs_plain(dev)
+    if "--k1-only" in argv:                 # phases 1-3 alone, no result lines
+        return 0
     t0 = time.perf_counter()
     frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
     log(f"[scene] rendered {len(frames)} junction frames in {time.perf_counter() - t0:.1f} s")
-
-    k1 = phase_kernel_vs_plain(dev)
     phase_slice(dev, frames)
     k2 = phase_match_kernel(dev)
     live = phase_live(dev, frames)
     phase_window(dev, frames, live["system"])
 
-    obj, lm = k1[-1], k2[0]
+    obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{
         "name": "flow_ba_lm",
         "route": "cuda",
@@ -573,6 +680,9 @@ def main() -> int:
         "max_abs_err": max(f["max_abs_err"] for f in k1),
         "ms": obj["ms"],
         "plain_ms": obj["plain_ms"],
+        "bound_ms": obj["bound_ms"],
+        "bound_by": obj["bound_by"],
+        "library_ms": None,        # no single PyTorch call runs an LM solve
     }, {
         "name": "match_projected",
         "route": "cuda",
@@ -582,6 +692,9 @@ def main() -> int:
         "max_abs_err": max(f["max_abs_err"] for f in k2),
         "ms": lm["ms"],
         "plain_ms": lm["plain_ms"],
+        "bound_ms": lm["bound_ms"],
+        "bound_by": lm["bound_by"],
+        "library_ms": None,        # no single PyTorch call gives a gated top-2 Hamming match
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -591,4 +704,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

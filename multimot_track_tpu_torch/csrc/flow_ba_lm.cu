@@ -1,4 +1,4 @@
-// Flow-BA Levenberg-Marquardt solve, one thread block per instance (sm_90a).
+// Flow-BA Levenberg-Marquardt solve, one thread-block cluster per instance (sm_90a).
 //
 // Replaces the TPU kernel multimot_track_tpu/solvers/flow_ba_pallas.py ::
 // solve_flow_ba_pallas (kernel body _make_kernel; helpers _chol_solve6,
@@ -7,109 +7,137 @@
 //
 //   cost = sum_valid Huber(w_pt * w_p * ||obs + f - pi(T X)||^2) + w_f ||f - f_meas||^2
 //
-// Each iteration Schur-eliminates the per-point 2-D flow (its Hessian block
-// is a scalar times I2), reduces the 21 upper-triangle Hessian and 6
-// gradient sums over the points, solves the damped 6x6 system by Cholesky,
-// back-substitutes the flow, evaluates the trial objective and applies
-// Nielsen's lambda schedule; it stops at rel_tol or at the iteration cap.
+// with X = Twl pi^-1(obs, depth).  Each iteration Schur-eliminates the
+// per-point 2-D flow (its Hessian block is a scalar times I2), reduces the
+// 21 upper-triangle Hessian and 6 gradient sums over the points, solves the
+// damped 6x6 system by Cholesky, back-substitutes the flow, evaluates the
+// trial objective and applies Nielsen's lambda schedule; it stops at
+// rel_tol or at the iteration cap.
 //
-// What bounds it on an H100.  The work is tiny (~150 flops per point per
-// pass, 2 passes per iteration; N = 2048..4096 points) and strictly
-// sequential across iterations: every iteration ends in two block-wide
-// reductions and a serial 6x6 Cholesky + se(3) exp on one thread.  So the
-// solve is latency bound (barriers, the serial scalar tail, L2 reads of the
-// 9 per-point planes, 36 B per point per pass), not bandwidth or FLOP
-// bound, and a stage of few instances (the camera stages: one instance per
-// pair) fills only a few of the 132 SMs.
+// What bounds it on an H100.  Per valid point and LM iteration the
+// algorithm needs ~295 fp32 operations: pass 1 ~208 (transform 18,
+// residual and robust weight ~24, Jacobian ~18, Schur terms ~17, the 21
+// Hessian products 105 and 6 gradient products 24), pass 2 ~87
+// (back-substitution ~38, trial objective ~47); ~120 more once per point
+// (back-projection, lambda seed, initial objective, final chi2).  The
+// bytes are ~21 in and ~13 out per point.  At the path's shapes (1-198
+// instances of 2048-4096 points, 4-14 iterations) that is 0.04-27 us of
+// the card's fp32 peak.  But each iteration is a strict chain: a pass over
+// the points, a reduction of 27 sums over all of them, a 6x6 Cholesky, an
+// se(3) exp and a compose, a second pass, a second reduction and the
+// accept test, none of which can start before the one before it ends.
+// That chain costs ~3.4-3.8 us per iteration on this card even at one
+// point per thread (tools/k1_plan_sweep.py, chain_cost), so the small
+// shapes are bound by its latency, not by bytes or flops, and the large
+// ones by how many points each SM walks per iteration.
 //
-// What the design does about it.  The LM loop, its done flag and the
-// lambda bookkeeping all run inside the kernel: one launch per solve stage
-// for every instance of the stage, no host round trip per iteration.  The
-// current and trial flow live in dynamic shared memory (4 x N floats,
-// 64 KB at N = 4096; global scratch beyond ~12.8k points), so accepting a
-// step is a buffer swap.  The read-only per-point inputs are SoA planes in
-// global memory, coalesced and L2 resident across iterations.  Reductions
-// are fixed order (per-thread strided partials, xor-butterfly warp
-// shuffles, then warps summed in order by one thread each): no atomics, so
-// results repeat run to run.  Wider instances per block, tensor-core
-// reductions, TMA and CUDA graphs are left for later work.
+// What the design does about it.
+//  - One cluster of C CTAs works on one instance (C in {1, 2, 4, 8},
+//    chosen by the wrapper from (M, N): spread a few instances over many
+//    SMs, keep a stage of many instances in few waves).  CTA r owns points
+//    [r S, r S + S), S = ceil(N / C), and thread j of a CTA owns its
+//    points j, j + 256, ...  Only the owner ever touches a point, so no
+//    barrier guards point data.
+//  - Every point is read from device memory once: the CTA back-projects
+//    it itself (X = Twl pi^-1(obs, depth), valid && depth > 0, the point
+//    weight) into shared memory, 13 float planes of P * 256 points (P the
+//    held points per thread, 1..16: up to 4096 points, 208 KB), with the
+//    current and trial flow.  Accepting a step swaps the flow buffers.
+//    Points beyond 4096 per CTA are streamed from device memory inside
+//    the kernel every pass, their flows in a global scratch buffer.
+//  - Up to P = 2, pass 1 keeps each point's y = T X, 1 / z, flow gradient,
+//    weight and 1 / h in registers, and pass 2 rebuilds the Jacobian from
+//    them instead of re-linearising.  Invalid points are skipped: their
+//    terms are exact zeros in the plain version, and their flow never
+//    moves.  P = 2..8 run two CTAs per SM (<= 128 registers a thread), so
+//    a stage of many instances runs in fewer waves.
+//  - Reductions are fixed order and cluster wide, with no atomics: a warp
+//    reduce-scatters its 27 sums in 31 shuffles, warp 0 adds the 8 warp
+//    partials in warp order, and after a cluster barrier warp 0 of every
+//    CTA adds the C CTA partials in rank order through distributed shared
+//    memory.  Every CTA thus holds the same totals, bit for bit; warp 0 of
+//    every CTA runs the same 6x6 solve, exp and compose on them and hands
+//    the step to its CTA through shared memory, and every thread runs the
+//    same accept test on the second reduction's totals, so the cluster
+//    takes the same steps and leaves the loop together with no broadcast
+//    between CTAs.  Two partial slots alternate, so one cluster barrier
+//    per reduction suffices.  Two launches on the same inputs give the
+//    same bits.  The Cholesky's diagonal takes one rsqrt each, the
+//    chain's longest link.
+//  - The kernel reads the caller's tensors with per-instance strides (a
+//    broadcast Twl or point weight has stride 0) and writes T, flow,
+//    chi2, inliers, n_inliers (int64), mean reprojection and iterations:
+//    the wrapper allocates the outputs and launches, nothing else.
 //
 // Numerics follow the plain torch solver (solvers/flow_ba.py) and the
 // Pallas kernel: 1/(z + 1e-9) in the residual, 1/max(z, 1e-6) in the
 // Jacobian and the lambda seed, point weights on the reprojection edge only,
 // and an unweighted final chi2.  Plain C ABI, bound with ctypes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 27;         // 21 upper-triangle H entries + 6 gradient
-constexpr int kPlanes = 9;        // X0 X1 X2 obs0 obs1 fm0 fm1 valid wpt
+constexpr int kPlanes = 13;       // X0 X1 X2 ob0 ob1 fm0 fm1 wpt valid, 2 flow buffers x 2
+constexpr int kFlowPlane = 9;     // flow buffer b, component c: plane 9 + 2 b + c
+constexpr int kMaxP = 16;         // held points per thread at most
+constexpr int kCacheP = 2;        // pass 1 keeps its linearisation in registers up to this P
 
-struct Params {
+struct Args {
+  const float* T_init; long long sT;   // (M, 4, 4); s*: instance strides in elements
+  const float* Twl; long long sW;      // (M, 4, 4), stride 0 when broadcast
+  const float* obs; long long sO;      // (M, N, 2)
+  const float* fm; long long sF;       // (M, N, 2)
+  const float* depth; long long sD;    // (M, N)
+  const uint8_t* valid; long long sV;  // (M, N) bool
+  const float* wpt; long long sP;      // (M, N) / (N,) point weights, or null (all 1)
+  float* T_out;                        // (M, 4, 4)
+  float* flow_out;                     // (M, N, 2)
+  float* chi2_out;                     // (M, N)
+  uint8_t* inl_out;                    // (M, N) bool
+  long long* n_inl_out;                // (M,)
+  float* mean_out;                     // (M,)
+  int* iters_out;                      // (M,)
+  float* scratch;                      // (M, 4, N) flows of streamed points, or null
+  int n, iters;
   float wp0, wf0, d2, tau, rel_tol, fx, fy, cx, cy;
-  int iters;
 };
-
-// Sum NV per-thread values over the block; every thread returns with the
-// totals in out[0..NV).  Fixed order: butterfly within each warp, then one
-// thread per value adds the warp partials in warp order.
-template <int NV>
-__device__ __forceinline__ void block_sum(float (&v)[NV], float* scratch, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float x = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (lane == 0) scratch[k * kWarps + warp] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < NV) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += scratch[threadIdx.x * kWarps + w];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float m = scratch[0];
-  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, scratch[w]);
-  __syncthreads();
-  return m;
-}
 
 struct Point {
   float X0, X1, X2, ob0, ob1, fm0, fm1, wpt;
   bool valid;
 };
 
-__device__ __forceinline__ Point load_point(const float* __restrict__ pl, int n, int i) {
+// Back-project point i of instance m from the caller's tensors; W is Twl's
+// top three rows (row-major 3 x 4).
+__device__ __forceinline__ Point fetch_point(const Args& a, int m, int i, const float* W) {
   Point q;
-  q.X0 = pl[i];
-  q.X1 = pl[n + i];
-  q.X2 = pl[2 * n + i];
-  q.ob0 = pl[3 * n + i];
-  q.ob1 = pl[4 * n + i];
-  q.fm0 = pl[5 * n + i];
-  q.fm1 = pl[6 * n + i];
-  q.valid = pl[7 * n + i] > 0.f;
-  q.wpt = pl[8 * n + i];
+  const float u = a.obs[m * a.sO + 2 * i], v = a.obs[m * a.sO + 2 * i + 1];
+  const float d = a.depth[m * a.sD + i];
+  const float x = (u - a.cx) * d / a.fx, y = (v - a.cy) * d / a.fy;
+  q.X0 = W[0] * x + W[1] * y + W[2] * d + W[3];
+  q.X1 = W[4] * x + W[5] * y + W[6] * d + W[7];
+  q.X2 = W[8] * x + W[9] * y + W[10] * d + W[11];
+  q.ob0 = u;
+  q.ob1 = v;
+  q.fm0 = a.fm[m * a.sF + 2 * i];
+  q.fm1 = a.fm[m * a.sF + 2 * i + 1];
+  q.wpt = a.wpt ? a.wpt[m * a.sP + i] : 1.f;
+  q.valid = a.valid[m * a.sV + i] != 0 && d > 0.f;
   return q;
 }
 
-// Robust objective contribution of one point (zero when invalid).
+// Robust objective contribution of one valid point.
 __device__ __forceinline__ float point_objective(const Point& q, const float* R, const float* t,
-                                                 float f0, float f1, const Params& p) {
+                                                 float f0, float f1, const Args& p) {
   const float y0 = R[0] * q.X0 + R[1] * q.X1 + R[2] * q.X2 + t[0];
   const float y1 = R[3] * q.X0 + R[4] * q.X1 + R[5] * q.X2 + t[1];
   const float y2 = R[6] * q.X0 + R[7] * q.X1 + R[8] * q.X2 + t[2];
@@ -119,338 +147,622 @@ __device__ __forceinline__ float point_objective(const Point& q, const float* R,
   const float chi2w = q.wpt * p.wp0 * (r0 * r0 + r1 * r1);
   const float rho = chi2w <= p.d2 ? chi2w : 2.f * sqrtf(p.d2 * fmaxf(chi2w, 1e-20f)) - p.d2;
   const float rf0 = f0 - q.fm0, rf1 = f1 - q.fm1;
-  const float chi2f = p.wf0 * (rf0 * rf0 + rf1 * rf1);
-  return q.valid ? rho + chi2f : 0.f;
+  return rho + p.wf0 * (rf0 * rf0 + rf1 * rf1);
 }
 
-// Per-point linearisation shared by the two passes of an iteration.
+// A = d r_p / d xi at y = T X, xi = (omega, upsilon), left update T <- exp(xi) T;
+// iz = 1 / max(y2, 1e-6), the Jacobian's projection.
+__device__ __forceinline__ void jacobian(float y0, float y1, float y2, float iz, const Args& p,
+                                         float* A0, float* A1) {
+  const float a = p.fx * iz, b = -p.fx * y0 * iz * iz;
+  const float c = p.fy * iz, d = -p.fy * y1 * iz * iz;
+  A0[0] = -b * y1;  A0[1] = -a * y2 + b * y0;  A0[2] = a * y1;
+  A0[3] = -a;       A0[4] = 0.f;               A0[5] = -b;
+  A1[0] = c * y2 - d * y1;  A1[1] = d * y0;  A1[2] = -c * y0;
+  A1[3] = 0.f;              A1[4] = -c;      A1[5] = -d;
+}
+
+// What pass 2 needs of pass 1's linearisation of one valid point.
 struct Lin {
-  float A0[6], A1[6];
-  float r0, r1, rf0, rf1, wp, wf;
+  float y0, y1, y2, iz;  // T X and the Jacobian's 1 / max(y2, 1e-6)
+  float gf0, gf1;        // flow gradient w_p r_p + w_f r_f
+  float wp, inv_h;       // robust reprojection weight, 1 / (w_p + w_f + lambda)
 };
 
 __device__ __forceinline__ Lin linearise(const Point& q, const float* R, const float* t,
-                                         float f0, float f1, const Params& p) {
+                                         float f0, float f1, float lam, const Args& p,
+                                         float* r, float* rf) {
   Lin L;
-  const float y0 = R[0] * q.X0 + R[1] * q.X1 + R[2] * q.X2 + t[0];
-  const float y1 = R[3] * q.X0 + R[4] * q.X1 + R[5] * q.X2 + t[1];
-  const float y2 = R[6] * q.X0 + R[7] * q.X1 + R[8] * q.X2 + t[2];
-  const float izr = 1.f / (y2 + 1e-9f);                 // residual projection
-  L.r0 = (q.ob0 + f0) - (p.fx * y0 * izr + p.cx);
-  L.r1 = (q.ob1 + f1) - (p.fy * y1 * izr + p.cy);
-  const float chi2w = q.wpt * p.wp0 * (L.r0 * L.r0 + L.r1 * L.r1);
+  L.y0 = R[0] * q.X0 + R[1] * q.X1 + R[2] * q.X2 + t[0];
+  L.y1 = R[3] * q.X0 + R[4] * q.X1 + R[5] * q.X2 + t[1];
+  L.y2 = R[6] * q.X0 + R[7] * q.X1 + R[8] * q.X2 + t[2];
+  const float izr = 1.f / (L.y2 + 1e-9f);               // residual projection
+  r[0] = (q.ob0 + f0) - (p.fx * L.y0 * izr + p.cx);
+  r[1] = (q.ob1 + f1) - (p.fy * L.y1 * izr + p.cy);
+  const float chi2w = q.wpt * p.wp0 * (r[0] * r[0] + r[1] * r[1]);
   const float w_rob = chi2w <= p.d2 ? 1.f : sqrtf(p.d2 / fmaxf(chi2w, 1e-20f));
-  L.wp = q.valid ? q.wpt * p.wp0 * w_rob : 0.f;
-  L.wf = q.valid ? p.wf0 : 0.f;
-  L.rf0 = f0 - q.fm0;
-  L.rf1 = f1 - q.fm1;
-  const float iz = 1.f / fmaxf(y2, 1e-6f);              // Jacobian projection
-  const float a = p.fx * iz, b = -p.fx * y0 * iz * iz;
-  const float c = p.fy * iz, d = -p.fy * y1 * iz * iz;
-  // A = d r_p / d xi with xi = (omega, upsilon), left update T <- exp(xi) T
-  L.A0[0] = -b * y1;  L.A0[1] = -a * y2 + b * y0;  L.A0[2] = a * y1;
-  L.A0[3] = -a;       L.A0[4] = 0.f;               L.A0[5] = -b;
-  L.A1[0] = c * y2 - d * y1;  L.A1[1] = d * y0;  L.A1[2] = -c * y0;
-  L.A1[3] = 0.f;              L.A1[4] = -c;      L.A1[5] = -d;
+  L.wp = q.wpt * p.wp0 * w_rob;
+  rf[0] = f0 - q.fm0;
+  rf[1] = f1 - q.fm1;
+  L.gf0 = L.wp * r[0] + p.wf0 * rf[0];
+  L.gf1 = L.wp * r[1] + p.wf0 * rf[1];
+  L.iz = 1.f / fmaxf(L.y2, 1e-6f);
+  L.inv_h = 1.f / (L.wp + p.wf0 + lam);
   return L;
+}
+
+// One step of a warp's reduce-scatter of 2W values: a lane keeps the upper
+// half when (lane & W) is set and adds its partner's copy of that half.
+template <int W>
+__device__ __forceinline__ void scatter_step(float (&x)[32], int lane) {
+  const bool up = lane & W;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const float send = up ? x[k] : x[k + W];
+    const float keep = up ? x[k + W] : x[k];
+    x[k] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+}
+
+// Shared-memory buffers of one CTA for cluster_reduce.
+struct ReduceBufs {
+  float warp[kWarps][32];   // each warp's partial sums
+  float cta[2][32];         // the CTA's partial, read by the whole cluster; two slots
+  float tot[32];            // the cluster's totals
+  float step[19];           // warp 0's LM step: dxi, R_new, t_new, predicted pose decrease
+};
+
+// Sum (or, for value 0 when kMax0, take the max of) NV per-thread values
+// over the whole cluster.  Fixed order: within a warp a butterfly (NV <= 2)
+// or a reduce-scatter (lane k ends with sum k, 31 shuffles), then warp 0
+// adds the kWarps warp partials in warp order, and after a cluster barrier
+// warp 0 of every CTA adds the C CTA partials in rank order, read through
+// distributed shared memory.  Every thread of every CTA returns with the
+// same totals in v (with kWarp0Only, only warp 0 does).  Consecutive calls
+// alternate `slot`, so one cluster barrier per call keeps a CTA partial
+// from being rewritten while another CTA still reads it.
+template <int NV, bool kMax0, bool kWarp0Only = false>
+__device__ __forceinline__ void cluster_reduce(float (&v)[NV], ReduceBufs& rb, int slot,
+                                               cg::cluster_group& cl) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto op = [](bool is_max, float x, float y) { return is_max ? fmaxf(x, y) : x + y; };
+  if constexpr (NV <= 2) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float x = v[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        x = op(kMax0 && k == 0, x, __shfl_xor_sync(0xffffffffu, x, off));
+      if (lane == 0) rb.warp[warp][k] = x;
+    }
+  } else {
+    float x[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) x[k] = k < NV ? v[k] : 0.f;
+    scatter_step<16>(x, lane);
+    scatter_step<8>(x, lane);
+    scatter_step<4>(x, lane);
+    scatter_step<2>(x, lane);
+    scatter_step<1>(x, lane);
+    if (lane < NV) rb.warp[warp][lane] = x[0];
+  }
+  __syncthreads();
+  const bool is_max = kMax0 && lane == 0;
+  if (warp == 0 && lane < NV) {
+    float s = rb.warp[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s = op(is_max, s, rb.warp[w][lane]);
+    rb.cta[slot][lane] = s;
+  }
+  cl.sync();
+  if (warp == 0 && lane < NV) {
+    const int C = (int)cl.num_blocks();
+    float part[8];                        // all C remote loads in flight at once
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < C) part[r] = cl.map_shared_rank(&rb.cta[slot][lane], r)[0];
+    float s = part[0];
+#pragma unroll
+    for (int r = 1; r < 8; ++r)
+      if (r < C) s = op(is_max, s, part[r]);
+    rb.tot[lane] = s;
+  }
+  if constexpr (kWarp0Only) {               // only warp 0 needs the totals
+    if (warp != 0) return;
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < NV; ++k) v[k] = rb.tot[k];
 }
 
 // x = H^{-1} g for SPD H (6x6 row-major), unrolled Cholesky, diagonal
 // clamped at 1e-30 like geometry/smallsolve.py.
-__device__ void chol_solve6(const float* H, const float* g, float* x) {
-  float L[6][6];
+__device__ __forceinline__ void chol_solve6(const float* H, const float* g, float* x) {
+  float L[6][6], inv[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
       float s = H[i * 6 + j];
+#pragma unroll
       for (int k = 0; k < j; ++k) s -= L[i][k] * L[j][k];
-      L[i][j] = (i == j) ? sqrtf(fmaxf(s, 1e-30f)) : s / L[j][j];
+      if (i == j) {                 // one MUFU.RSQ: the column's critical path
+        const float d = fmaxf(s, 1e-30f);
+        inv[i] = rsqrtf(d);
+        L[i][i] = d * inv[i];
+      } else {
+        L[i][j] = s * inv[j];
+      }
     }
   }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = g[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    x[i] = s * inv[i];
   }
 }
 
 // se(3) exp of (omega, upsilon) with geometry/se3.exp_se3's eps terms.
-__device__ void exp_se3(const float* xi, float* R, float* t) {
+__device__ __forceinline__ void exp_se3(const float* xi, float* R, float* t) {
   const float EPS = 1e-8f;
   const float w0 = xi[0], w1 = xi[1], w2 = xi[2];
   const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
   const float th = sqrtf(th2 + EPS * EPS);
   const bool small = th2 < 1e-10f;
-  const float a = small ? 1.f - th2 / 6.f : sinf(th) / th;
-  const float b = small ? 0.5f - th2 / 24.f : (1.f - cosf(th)) / (th2 + EPS * EPS);
-  const float c = small ? 1.f / 6.f - th2 / 120.f : (th - sinf(th)) / (th2 * th + EPS);
+  float sn, cs;
+  sincosf(th, &sn, &cs);
+  const float a = small ? 1.f - th2 / 6.f : sn / th;
+  const float b = small ? 0.5f - th2 / 24.f : (1.f - cs) / (th2 + EPS * EPS);
+  const float c = small ? 1.f / 6.f - th2 / 120.f : (th - sn) / (th2 * th + EPS);
   const float K[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
   float K2[9];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
+#pragma unroll
     for (int j = 0; j < 3; ++j)
       K2[i * 3 + j] = K[i * 3] * K[j] + K[i * 3 + 1] * K[3 + j] + K[i * 3 + 2] * K[6 + j];
   float V[9];
+#pragma unroll
   for (int k = 0; k < 9; ++k) {
     const float e = (k % 4 == 0) ? 1.f : 0.f;
     R[k] = e + a * K[k] + b * K2[k];
     V[k] = e + b * K[k] + c * K2[k];
   }
+#pragma unroll
   for (int i = 0; i < 3; ++i)
     t[i] = V[i * 3] * xi[3] + V[i * 3 + 1] * xi[4] + V[i * 3 + 2] * xi[5];
 }
 
-__global__ void __launch_bounds__(kThreads)
-flow_ba_lm_kernel(const float* __restrict__ tin, const float* __restrict__ planes,
-                  float* __restrict__ tout, float* __restrict__ fout,
-                  float* __restrict__ chi2_out, float* __restrict__ stats,
-                  float* __restrict__ gscratch, int n, Params p) {
-  extern __shared__ float dyn[];
-  __shared__ float s_red[kSums * kWarps];
-  __shared__ float s_sum[kSums];
-  __shared__ float s_R[9], s_t[3], s_Rn[9], s_tn[3], s_dxi[6];
-  __shared__ float s_F, s_lam, s_nu, s_pred_pose;
-  __shared__ int s_cur, s_done, s_it;
+// Points per CTA held in shared memory for a P-point-per-thread instantiation.
+template <int P>
+__host__ __device__ constexpr int held_points() { return P * kThreads; }
 
-  const int m = blockIdx.x, tid = threadIdx.x;
-  const float* pl = planes + (size_t)m * kPlanes * n;
-  // two flow buffers of 2 planes each: buffer b is fb[2*b*n .. 2*b*n + 2n)
-  float* fb = gscratch ? gscratch + (size_t)m * 4 * n : dyn;
+// CTAs an SM holds: two for P = 2..8 (<= 128 registers a thread, <= 104 KB
+// of shared memory), so that a stage of many instances runs in fewer
+// waves; one at P = 16 (208 KB), and at P = 1, whose one point per thread
+// leaves the iteration's serial chain to set the pace: it keeps up to 255
+// registers rather than spill in that chain.
+template <int P>
+__host__ __device__ constexpr int ctas_per_sm() { return P == 1 || P == 16 ? 1 : 2; }
 
-  if (tid == 0) {
-    const float* T = tin + (size_t)m * 16;
+template <int P>
+__global__ void __launch_bounds__(kThreads, ctas_per_sm<P>()) flow_ba_lm_kernel(const Args a) {
+  constexpr int HP = held_points<P>();
+  constexpr bool kCache = P <= kCacheP;
+  extern __shared__ float sm[];                   // kPlanes planes of HP floats
+  __shared__ ReduceBufs rb;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int m = blockIdx.x / C, tid = threadIdx.x;
+  const int n = a.n, S = (n + C - 1) / C;
+  const int begin = min(rank * S, n);
+  const int cnt = min(n - begin, S);               // points of this CTA
+  const int held = min(cnt, HP);                  // of those, held in shared memory
+  auto PL = [&](int plane, int k) -> float& { return sm[plane * HP + k]; };
+  float* gflow = a.scratch ? a.scratch + (size_t)m * 4 * n + begin : nullptr;
+  auto GF = [&](int plane, int k) -> float& { return gflow[(size_t)plane * n + k]; };
+  auto held_point = [&](int k) {
+    Point q;
+    q.X0 = PL(0, k); q.X1 = PL(1, k); q.X2 = PL(2, k);
+    q.ob0 = PL(3, k); q.ob1 = PL(4, k); q.fm0 = PL(5, k); q.fm1 = PL(6, k);
+    q.wpt = PL(7, k);
+    q.valid = PL(8, k) != 0.f;
+    return q;
+  };
+
+  __shared__ float s_W[12];                       // Twl's top rows, for fetch_point
+  if (tid < 12) s_W[tid] = a.Twl[m * a.sW + tid];
+  float R[9], t[3];
+  {
+    const float* T = a.T_init + m * a.sT;
+#pragma unroll
     for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) s_R[i * 3 + j] = T[i * 4 + j];
-      s_t[i] = T[i * 4 + 3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) R[i * 3 + j] = T[i * 4 + j];
+      t[i] = T[i * 4 + 3];
     }
-    s_cur = 0;
-    s_done = 0;
-    s_it = 0;
-    s_nu = 2.f;
-  }
-  for (int i = tid; i < n; i += kThreads) {
-    fb[i] = pl[5 * n + i];
-    fb[n + i] = pl[6 * n + i];
   }
   __syncthreads();
 
-  // ---- lambda seed (tau * max diag scale) and the initial objective ----
+  // ---- the one read of the points; lambda seed and initial objective ----
+  float lam, F;
   {
-    float R[9], t[3];
-    for (int k = 0; k < 9; ++k) R[k] = s_R[k];
-    for (int k = 0; k < 3; ++k) t[k] = s_t[k];
-    float mx = 0.f;
-    float acc[1] = {0.f};
-    for (int i = tid; i < n; i += kThreads) {
-      const Point q = load_point(pl, n, i);
+    float acc[2] = {0.f, 0.f};                    // max seed, objective
+    auto seed = [&](const Point& q) {
+      if (!q.valid) return;
       const float y2 = R[6] * q.X0 + R[7] * q.X1 + R[8] * q.X2 + t[2];
       const float z = fmaxf(y2, 1e-6f);
-      const float scale = (p.fx / z) * (p.fx / z) + (p.fy / z) * (p.fy / z);
-      if (q.valid) mx = fmaxf(mx, q.wpt * p.wp0 * scale);
-      acc[0] += point_objective(q, R, t, q.fm0, q.fm1, p);
+      const float scale = (a.fx / z) * (a.fx / z) + (a.fy / z) * (a.fy / z);
+      acc[0] = fmaxf(acc[0], q.wpt * a.wp0 * scale);
+      acc[1] += point_objective(q, R, t, q.fm0, q.fm1, a);
+    };
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int k = tid + j * kThreads;
+      if (k < held) {
+        const Point q = fetch_point(a, m, begin + k, s_W);
+        PL(0, k) = q.X0; PL(1, k) = q.X1; PL(2, k) = q.X2;
+        PL(3, k) = q.ob0; PL(4, k) = q.ob1; PL(5, k) = q.fm0; PL(6, k) = q.fm1;
+        PL(7, k) = q.wpt;
+        PL(8, k) = q.valid ? 1.f : 0.f;
+#pragma unroll
+        for (int b = 0; b < 4; b += 2) {
+          PL(kFlowPlane + b, k) = q.fm0;
+          PL(kFlowPlane + b + 1, k) = q.fm1;
+        }
+        seed(q);
+      }
     }
-    mx = block_max(mx, s_red);
-    block_sum<1>(acc, s_red, s_sum);
-    if (tid == 0) {
-      s_lam = p.tau * fmaxf(mx, 1.f);
-      s_F = s_sum[0];
+    for (int k = held + tid; k < cnt; k += kThreads) {
+      const Point q = fetch_point(a, m, begin + k, s_W);
+#pragma unroll
+      for (int b = 0; b < 4; b += 2) {
+        GF(b, k) = q.fm0;
+        GF(b + 1, k) = q.fm1;
+      }
+      seed(q);
     }
-    __syncthreads();
+    cluster_reduce<2, true>(acc, rb, 0, cl);
+    lam = a.tau * fmaxf(acc[0], 1.f);
+    F = acc[1];
   }
 
-  for (int it = 0; it < p.iters; ++it) {
-    if (s_done) break;                      // block-uniform: read after a barrier
-    const int cur = s_cur;
-    const float* f0 = fb + 2 * cur * n;
-    const float* f1 = f0 + n;
-    float* g0 = fb + 2 * (1 - cur) * n;     // trial buffer
-    float* g1 = g0 + n;
-    const float lam = s_lam;
-    float R[9], t[3];
-    for (int k = 0; k < 9; ++k) R[k] = s_R[k];
-    for (int k = 0; k < 3; ++k) t[k] = s_t[k];
+  float nu = 2.f;
+  int cur = 0, it_done = 0, slot = 1;
+  Lin cache[kCache ? P : 1];
+  for (int it = 0; it < a.iters; ++it) {
+    const int trial = 1 - cur;
 
     // ---- pass 1: reduced Hessian and gradient ----
     float acc[kSums];
 #pragma unroll
     for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
-    for (int i = tid; i < n; i += kThreads) {
-      const Point q = load_point(pl, n, i);
-      const Lin L = linearise(q, R, t, f0[i], f1[i], p);
-      const float h = L.wp + L.wf + lam;
-      const float inv_h = 1.f / h;
-      const float wH = L.wp * (L.wf + lam) * inv_h;
-      const float k1 = 1.f - L.wp * inv_h, k2 = L.wf * inv_h;
-      const float e0 = L.wp * (k1 * L.r0 - k2 * L.rf0);
-      const float e1 = L.wp * (k1 * L.r1 - k2 * L.rf1);
+    auto pass1 = [&](const Point& q, float f0, float f1, Lin& L) {
+      float r[2], rf[2], A0[6], A1[6];
+      L = linearise(q, R, t, f0, f1, lam, a, r, rf);
+      jacobian(L.y0, L.y1, L.y2, L.iz, a, A0, A1);
+      const float inv_h = L.inv_h;
+      const float wH = L.wp * (a.wf0 + lam) * inv_h;
+      const float k1 = 1.f - L.wp * inv_h, k2 = a.wf0 * inv_h;
+      const float e0 = L.wp * (k1 * r[0] - k2 * rf[0]);
+      const float e1 = L.wp * (k1 * r[1] - k2 * rf[1]);
       int k = 0;
 #pragma unroll
-      for (int a = 0; a < 6; ++a)
+      for (int i = 0; i < 6; ++i)
 #pragma unroll
-        for (int b = a; b < 6; ++b) acc[k++] += wH * (L.A0[a] * L.A0[b] + L.A1[a] * L.A1[b]);
+        for (int j = i; j < 6; ++j) acc[k++] += wH * (A0[i] * A0[j] + A1[i] * A1[j]);
 #pragma unroll
-      for (int a = 0; a < 6; ++a) acc[21 + a] += L.A0[a] * e0 + L.A1[a] * e1;
+      for (int i = 0; i < 6; ++i) acc[21 + i] += A0[i] * e0 + A1[i] * e1;
+    };
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int k = tid + j * kThreads;
+      if (k < held) {
+        const Point q = held_point(k);
+        if (q.valid) {
+          Lin L;
+          pass1(q, PL(kFlowPlane + 2 * cur, k), PL(kFlowPlane + 2 * cur + 1, k), L);
+          if constexpr (kCache) cache[j] = L;
+        }
+      }
     }
-    block_sum<kSums>(acc, s_red, s_sum);
+    for (int k = held + tid; k < cnt; k += kThreads) {
+      const Point q = fetch_point(a, m, begin + k, s_W);
+      if (q.valid) {
+        Lin L;
+        pass1(q, GF(2 * cur, k), GF(2 * cur + 1, k), L);
+      }
+    }
+    cluster_reduce<kSums, false, true>(acc, rb, slot, cl);
+    slot ^= 1;
 
-    // ---- serial tail: damped 6x6 solve, exp, compose ----
-    if (tid == 0) {
-      float H[36], mg[6], dxi[6];
+    // ---- the damped 6x6 solve, exp and compose: warp 0 of every CTA on the
+    // same totals, so every CTA takes the same step ----
+    if (threadIdx.x < 32) {
+      float dxi[6], Rn[9], tn[3], pred_pose = 0.f;
+      float H[36], mg[6];
       int k = 0;
-      for (int a = 0; a < 6; ++a)
-        for (int b = a; b < 6; ++b) {
-          H[a * 6 + b] = s_sum[k];
-          H[b * 6 + a] = s_sum[k];
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+#pragma unroll
+        for (int j = i; j < 6; ++j) {
+          H[i * 6 + j] = acc[k];
+          H[j * 6 + i] = acc[k];
           ++k;
         }
-      for (int a = 0; a < 6; ++a) {
-        H[a * 6 + a] += lam;
-        mg[a] = -s_sum[21 + a];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        H[i * 6 + i] += lam;
+        mg[i] = -acc[21 + i];
       }
       chol_solve6(H, mg, dxi);
-      float pred_pose = 0.f;
-      for (int a = 0; a < 6; ++a) pred_pose += dxi[a] * (lam * dxi[a] - s_sum[21 + a]);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) pred_pose += dxi[i] * (lam * dxi[i] - acc[21 + i]);
       float dR[9], dt[3];
       exp_se3(dxi, dR, dt);
+#pragma unroll
       for (int i = 0; i < 3; ++i) {
+#pragma unroll
         for (int j = 0; j < 3; ++j)
-          s_Rn[i * 3 + j] = dR[i * 3] * R[j] + dR[i * 3 + 1] * R[3 + j] + dR[i * 3 + 2] * R[6 + j];
-        s_tn[i] = dR[i * 3] * t[0] + dR[i * 3 + 1] * t[1] + dR[i * 3 + 2] * t[2] + dt[i];
+          Rn[i * 3 + j] = dR[i * 3] * R[j] + dR[i * 3 + 1] * R[3 + j] + dR[i * 3 + 2] * R[6 + j];
+        tn[i] = dR[i * 3] * t[0] + dR[i * 3 + 1] * t[1] + dR[i * 3 + 2] * t[2] + dt[i];
       }
-      for (int a = 0; a < 6; ++a) s_dxi[a] = dxi[a];
-      s_pred_pose = pred_pose;
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < 6; ++i) rb.step[i] = dxi[i];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) rb.step[6 + i] = Rn[i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) rb.step[15 + i] = tn[i];
+        rb.step[18] = pred_pose;
+      }
     }
     __syncthreads();
+    float dxi[6], Rn[9], tn[3];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) dxi[i] = rb.step[i];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) Rn[i] = rb.step[6 + i];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) tn[i] = rb.step[15 + i];
+    const float pred_pose = rb.step[18];
 
     // ---- pass 2: flow back-substitution, trial objective ----
-    float Rn[9], tn[3], dxi[6];
-    for (int k = 0; k < 9; ++k) Rn[k] = s_Rn[k];
-    for (int k = 0; k < 3; ++k) tn[k] = s_tn[k];
-    for (int k = 0; k < 6; ++k) dxi[k] = s_dxi[k];
-    float acc2[2] = {0.f, 0.f};             // pred_flow, F_new
-    for (int i = tid; i < n; i += kThreads) {
-      const Point q = load_point(pl, n, i);
-      const float fi0 = f0[i], fi1 = f1[i];
-      const Lin L = linearise(q, R, t, fi0, fi1, p);
-      const float inv_h = 1.f / (L.wp + L.wf + lam);
-      const float gf0 = L.wp * L.r0 + L.wf * L.rf0;
-      const float gf1 = L.wp * L.r1 + L.wf * L.rf1;
+    float acc2[2] = {0.f, 0.f};                   // pred_flow, F_new
+    auto pass2 = [&](const Point& q, float f0, float f1, const Lin& L, float& g0, float& g1) {
+      float A0[6], A1[6];
+      jacobian(L.y0, L.y1, L.y2, L.iz, a, A0, A1);
+      const float inv_h = L.inv_h;
       float Ad0 = 0.f, Ad1 = 0.f;
 #pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        Ad0 += L.A0[a] * dxi[a];
-        Ad1 += L.A1[a] * dxi[a];
+      for (int i = 0; i < 6; ++i) {
+        Ad0 += A0[i] * dxi[i];
+        Ad1 += A1[i] * dxi[i];
       }
-      const float df0 = -(gf0 + L.wp * Ad0) * inv_h;
-      const float df1 = -(gf1 + L.wp * Ad1) * inv_h;
-      if (q.valid) acc2[0] += df0 * (lam * df0 - gf0) + df1 * (lam * df1 - gf1);
-      const float fn0 = fi0 + df0, fn1 = fi1 + df1;
-      g0[i] = fn0;
-      g1[i] = fn1;
-      acc2[1] += point_objective(q, Rn, tn, fn0, fn1, p);
+      const float df0 = -(L.gf0 + L.wp * Ad0) * inv_h;
+      const float df1 = -(L.gf1 + L.wp * Ad1) * inv_h;
+      acc2[0] += df0 * (lam * df0 - L.gf0) + df1 * (lam * df1 - L.gf1);
+      g0 = f0 + df0;
+      g1 = f1 + df1;
+      acc2[1] += point_objective(q, Rn, tn, g0, g1, a);
+    };
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const int k = tid + j * kThreads;
+      if (k < held) {
+        const Point q = held_point(k);
+        if (q.valid) {
+          const float f0 = PL(kFlowPlane + 2 * cur, k), f1 = PL(kFlowPlane + 2 * cur + 1, k);
+          Lin L;
+          if constexpr (kCache) {
+            L = cache[j];
+          } else {
+            float r[2], rf[2];
+            L = linearise(q, R, t, f0, f1, lam, a, r, rf);
+          }
+          pass2(q, f0, f1, L, PL(kFlowPlane + 2 * trial, k), PL(kFlowPlane + 2 * trial + 1, k));
+        }
+      }
     }
-    block_sum<2>(acc2, s_red, s_sum);
+    for (int k = held + tid; k < cnt; k += kThreads) {
+      const Point q = fetch_point(a, m, begin + k, s_W);
+      if (q.valid) {
+        const float f0 = GF(2 * cur, k), f1 = GF(2 * cur + 1, k);
+        float r[2], rf[2];
+        const Lin L = linearise(q, R, t, f0, f1, lam, a, r, rf);
+        pass2(q, f0, f1, L, GF(2 * trial, k), GF(2 * trial + 1, k));
+      }
+    }
+    cluster_reduce<2, false>(acc2, rb, slot, cl);
+    slot ^= 1;
 
-    // ---- accept / reject, Nielsen's lambda update ----
-    if (tid == 0) {
-      const float F = s_F, F_new = s_sum[1];
-      const float pred = 0.5f * (s_pred_pose + s_sum[0]);
-      const float gain = (F - F_new) / fmaxf(pred, 1e-20f);
-      const bool accept = (F_new < F) && isfinite(F_new);
-      const float q = 2.f * gain - 1.f;
-      const float lam_acc = lam * fmaxf(1.f / 3.f, 1.f - q * q * q);
-      const bool done = (accept && (F - F_new < p.rel_tol * F + 1e-10f)) || (lam > 1e8f);
-      if (accept) {
-        for (int k = 0; k < 9; ++k) s_R[k] = s_Rn[k];
-        for (int k = 0; k < 3; ++k) s_t[k] = s_tn[k];
-        s_F = F_new;
-        s_cur = 1 - cur;
-        s_lam = lam_acc;
-        s_nu = 2.f;
-      } else {
-        s_lam = lam * s_nu;
-        s_nu = s_nu * 2.f;
-      }
-      s_done = done ? 1 : 0;
-      s_it = it + 1;
+    // ---- accept / reject, Nielsen's lambda update (every thread alike) ----
+    const float F_new = acc2[1];
+    const float pred = 0.5f * (pred_pose + acc2[0]);
+    const float gain = (F - F_new) / fmaxf(pred, 1e-20f);
+    const bool accept = (F_new < F) && isfinite(F_new);
+    const float qg = 2.f * gain - 1.f;
+    const float lam_acc = lam * fmaxf(1.f / 3.f, 1.f - qg * qg * qg);
+    const bool done = (accept && (F - F_new < a.rel_tol * F + 1e-10f)) || (lam > 1e8f);
+    if (accept) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) t[k] = tn[k];
+      F = F_new;
+      cur = trial;
+      lam = lam_acc;
+      nu = 2.f;
+    } else {
+      lam = lam * nu;
+      nu = nu * 2.f;
     }
-    __syncthreads();
+    it_done = it + 1;
+    if (done) break;
   }
 
-  // ---- final unweighted chi2, inliers, mean reprojection ----
-  {
-    float R[9], t[3];
-    for (int k = 0; k < 9; ++k) R[k] = s_R[k];
-    for (int k = 0; k < 3; ++k) t[k] = s_t[k];
-    const float* f0 = fb + 2 * s_cur * n;
-    const float* f1 = f0 + n;
-    float acc[2] = {0.f, 0.f};
-    for (int i = tid; i < n; i += kThreads) {
-      const Point q = load_point(pl, n, i);
-      const float y0 = R[0] * q.X0 + R[1] * q.X1 + R[2] * q.X2 + t[0];
-      const float y1 = R[3] * q.X0 + R[4] * q.X1 + R[5] * q.X2 + t[1];
-      const float y2 = R[6] * q.X0 + R[7] * q.X1 + R[8] * q.X2 + t[2];
-      const float iz = 1.f / (y2 + 1e-9f);
-      const float r0 = (q.ob0 + f0[i]) - (p.fx * y0 * iz + p.cx);
-      const float r1 = (q.ob1 + f1[i]) - (p.fy * y1 * iz + p.cy);
-      const float chi2 = p.wp0 * (r0 * r0 + r1 * r1);
-      chi2_out[(size_t)m * n + i] = chi2;
-      fout[(size_t)m * 2 * n + i] = f0[i];
-      fout[(size_t)m * 2 * n + n + i] = f1[i];
-      if (q.valid && chi2 <= p.d2) {
-        acc[0] += 1.f;
-        acc[1] += sqrtf(chi2);
-      }
+  // ---- final unweighted chi2, flows, inliers, mean reprojection ----
+  float acc[2] = {0.f, 0.f};                      // inliers, sum sqrt(chi2)
+  auto final_point = [&](const Point& q, int i, float f0, float f1) {
+    const float y0 = R[0] * q.X0 + R[1] * q.X1 + R[2] * q.X2 + t[0];
+    const float y1 = R[3] * q.X0 + R[4] * q.X1 + R[5] * q.X2 + t[1];
+    const float y2 = R[6] * q.X0 + R[7] * q.X1 + R[8] * q.X2 + t[2];
+    const float iz = 1.f / (y2 + 1e-9f);
+    const float r0 = (q.ob0 + f0) - (a.fx * y0 * iz + a.cx);
+    const float r1 = (q.ob1 + f1) - (a.fy * y1 * iz + a.cy);
+    const float chi2 = a.wp0 * (r0 * r0 + r1 * r1);
+    const bool inl = q.valid && chi2 <= a.d2;
+    const size_t o = (size_t)m * n + i;
+    a.chi2_out[o] = chi2;
+    a.flow_out[2 * o] = f0;
+    a.flow_out[2 * o + 1] = f1;
+    a.inl_out[o] = inl ? 1 : 0;
+    if (inl) {
+      acc[0] += 1.f;
+      acc[1] += sqrtf(chi2);
     }
-    block_sum<2>(acc, s_red, s_sum);
-    if (tid == 0) {
-      float* T = tout + (size_t)m * 16;
-      for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) T[i * 4 + j] = s_R[i * 3 + j];
-        T[i * 4 + 3] = s_t[i];
-      }
-      T[12] = 0.f;
-      T[13] = 0.f;
-      T[14] = 0.f;
-      T[15] = 1.f;
-      float* st = stats + (size_t)m * 4;
-      st[0] = s_sum[0];
-      st[1] = s_sum[1] / fmaxf(s_sum[0], 1.f);
-      st[2] = s_F;
-      st[3] = (float)s_it;
-    }
+  };
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int k = tid + j * kThreads;
+    if (k < held)
+      final_point(held_point(k), begin + k, PL(kFlowPlane + 2 * cur, k),
+                  PL(kFlowPlane + 2 * cur + 1, k));
   }
+  for (int k = held + tid; k < cnt; k += kThreads)
+    final_point(fetch_point(a, m, begin + k, s_W), begin + k, GF(2 * cur, k),
+                GF(2 * cur + 1, k));
+  cluster_reduce<2, false>(acc, rb, slot, cl);
+  if (rank == 0 && tid == 0) {
+    float* T = a.T_out + (size_t)m * 16;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) T[i * 4 + j] = R[i * 3 + j];
+      T[i * 4 + 3] = t[i];
+    }
+    T[12] = 0.f;
+    T[13] = 0.f;
+    T[14] = 0.f;
+    T[15] = 1.f;
+    a.n_inl_out[m] = (long long)acc[0];
+    a.mean_out[m] = acc[1] / fmaxf(acc[0], 1.f);
+    a.iters_out[m] = it_done;
+  }
+  cl.sync();               // no CTA leaves while another may read its partials
+}
+
+template <int P>
+size_t smem_bytes() { return (size_t)kPlanes * held_points<P>() * sizeof(float); }
+
+template <int P>
+int launch(const Args& a, int m, int cluster, cudaStream_t stream) {
+  // whether the card can co-schedule this cluster shape, asked once per shape
+  static int schedulable[4] = {0, 0, 0, 0};      // 0 unknown, 1 yes, -1 no
+  const int ci = cluster == 1 ? 0 : cluster == 2 ? 1 : cluster == 4 ? 2 : 3;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(m * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes<P>();
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (schedulable[ci] == 0) {
+    int n_clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n_clusters, flow_ba_lm_kernel<P>, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    schedulable[ci] = n_clusters > 0 ? 1 : -1;
+  }
+  if (schedulable[ci] < 0) return (int)cudaErrorLaunchOutOfResources;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, flow_ba_lm_kernel<P>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int set_smem() {
+  return (int)cudaFuncSetAttribute(flow_ba_lm_kernel<P>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem_bytes<P>());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs for n points when the flow buffers
-// live in shared memory.
-size_t flow_ba_lm_smem_bytes(int n) { return (size_t)4 * n * sizeof(float); }
+// Once per library load: let every instantiation use its shared memory.
+int flow_ba_lm_init() {
+  int err = set_smem<1>();
+  if (!err) err = set_smem<2>();
+  if (!err) err = set_smem<4>();
+  if (!err) err = set_smem<8>();
+  if (!err) err = set_smem<16>();
+  return err;
+}
 
-// Launch one block per instance on `stream`.  scratch: null to keep the
-// flow buffers in shared memory, else (m, 4, n) floats of global scratch.
-// Returns cudaGetLastError() after the launch (0 = launched).
-int flow_ba_lm_launch(const float* tin, const float* planes, float* tout, float* fout,
-                      float* chi2, float* stats, float* scratch, int m, int n, int iters,
-                      float reproj_info, float prior_info, float rp_thres, float tau,
+// Points a CTA holds in shared memory at the most (beyond that it streams).
+int flow_ba_lm_max_held() { return held_points<kMaxP>(); }
+
+// CTAs of the p-point instantiation that one SM holds, as the card reports
+// it (the wrapper's plan assumes ctas_per_sm<p>()), or -1 on an error.
+int flow_ba_lm_ctas_per_sm(int p) {
+  int n = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (p) {
+    case 1: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flow_ba_lm_kernel<1>, kThreads, smem_bytes<1>()); break;
+    case 2: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flow_ba_lm_kernel<2>, kThreads, smem_bytes<2>()); break;
+    case 4: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flow_ba_lm_kernel<4>, kThreads, smem_bytes<4>()); break;
+    case 8: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flow_ba_lm_kernel<8>, kThreads, smem_bytes<8>()); break;
+    case 16: err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, flow_ba_lm_kernel<16>, kThreads, smem_bytes<16>()); break;
+  }
+  return err == cudaSuccess ? n : -1;
+}
+
+// Launch m clusters of `cluster` CTAs (1, 2, 4 or 8), `p` held points per
+// thread (1, 2, 4, 8 or 16), on `stream`.  Returns a CUDA error code
+// (0 = launched); cudaErrorLaunchOutOfResources if the card cannot
+// schedule the cluster (cudaOccupancyMaxActiveClusters is 0).
+int flow_ba_lm_launch(const float* T_init, long long sT, const float* Twl, long long sW,
+                      const float* obs, long long sO, const float* fm, long long sF,
+                      const float* depth, long long sD, const uint8_t* valid, long long sV,
+                      const float* wpt, long long sP, float* T_out, float* flow_out,
+                      float* chi2_out, uint8_t* inl_out, long long* n_inl_out, float* mean_out,
+                      int* iters_out, float* scratch, int m, int n, int cluster, int p,
+                      int iters, float reproj_info, float prior_info, float rp_thres, float tau,
                       float rel_tol, float fx, float fy, float cx, float cy, void* stream) {
   if (m <= 0) return 0;
-  const size_t smem = scratch ? 0 : flow_ba_lm_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(flow_ba_lm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  Params p{reproj_info, prior_info, rp_thres, tau, rel_tol, fx, fy, cx, cy, iters};
-  flow_ba_lm_kernel<<<m, kThreads, smem, (cudaStream_t)stream>>>(
-      tin, planes, tout, fout, chi2, stats, scratch, n, p);
-  return (int)cudaGetLastError();
+  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) return (int)cudaErrorInvalidValue;
+  // a CTA streams the points beyond p * kThreads; their flows need scratch
+  if ((n + cluster - 1) / cluster > p * kThreads && !scratch) return (int)cudaErrorInvalidValue;
+  const Args a{T_init, sT, Twl, sW, obs, sO, fm, sF, depth, sD, valid, sV, wpt, sP,
+               T_out, flow_out, chi2_out, inl_out, n_inl_out, mean_out, iters_out, scratch,
+               n, iters, reproj_info, prior_info, rp_thres, tau, rel_tol, fx, fy, cx, cy};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (p) {
+    case 1: return launch<1>(a, m, cluster, s);
+    case 2: return launch<2>(a, m, cluster, s);
+    case 4: return launch<4>(a, m, cluster, s);
+    case 8: return launch<8>(a, m, cluster, s);
+    case 16: return launch<16>(a, m, cluster, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -200,7 +200,7 @@ class MultiMotSystem:
                  enable_keyframes: bool = True, keyframe_gap: int = 5,
                  enable_loop_closing: bool = True, discover_objects: bool = False,
                  pipelined: bool = False,
-                 device="cpu", sampler: Optional[HypothesisSampler] = None,
+                 device="cuda", sampler: Optional[HypothesisSampler] = None,
                  backend: Optional[str] = None, match_backend: str = "auto"):
         be = cfg.backend
         for asked, what, item in (
@@ -216,6 +216,9 @@ class MultiMotSystem:
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("MultiMotSystem runs on the card by default and found no "
+                               "CUDA device; pass device='cpu' to run on the CPU")
         if self.device.type == "cuda":
             # exact float32 products and convolutions (BRIEF compares blurred values)
             torch.backends.cuda.matmul.allow_tf32 = False

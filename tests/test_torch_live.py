@@ -101,7 +101,7 @@ def run_jax(cfg, frames, lost_last=False, **kw):
 
 def run_port(cfg, frames, lost_last=False, **kw):
     s = TSystem(cfg, seed=SEED, keyframe_gap=1, enable_loop_closing=False,
-                sampler=jax_sampler(), **kw)
+                sampler=jax_sampler(), device="cpu", **kw)
     return s, run(s, frames, lost_last)
 
 
@@ -215,12 +215,12 @@ def test_unfused_local_map_equals_fused(frames, sync_runs):
 def test_checkpoint_resume_and_savers(frames, sync_runs, tmp_path):
     _, _, _, t, _ = sync_runs
     s = TSystem(TCFG, seed=SEED, keyframe_gap=1, enable_loop_closing=False,
-                sampler=jax_sampler())
+                sampler=jax_sampler(), device="cpu")
     for fd in frames[:4]:
         s.track_rgbd(fd)
     s.save_checkpoint(tmp_path / "ck.pkl")
     r = TSystem(TCFG, seed=SEED, keyframe_gap=1, enable_loop_closing=False,
-                sampler=jax_sampler())
+                sampler=jax_sampler(), device="cpu")
     r.load_checkpoint(tmp_path / "ck.pkl")
     r.track_rgbd(frames[4])
     np.testing.assert_allclose(poses(r), poses(t), atol=SELF_TOL)
@@ -241,6 +241,15 @@ def test_unported_backend_features_raise(kw, item):
     kw.setdefault("enable_loop_closing", False)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
         TSystem(TCFG, **kw)
+
+
+def test_default_device_is_the_card():
+    """Without device=, the live system runs on the card; with no card it
+    raises rather than running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device exists: the default has a card to run on")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSystem(TCFG, enable_loop_closing=False)
 
 
 def test_pipelined_requires_fused_refine():
@@ -274,11 +283,11 @@ def test_live_path_runs_without_jax():
         "class Seq(list):\n"
         "    load_frame = list.__getitem__\n"
         "s = run_sequence(Seq(fr), cfg, keyframe_gap=1, enable_loop_closing=False,\n"
-        "                 pipelined=True)\n"
+        "                 pipelined=True, device='cpu')\n"
         "assert len(s.map.camera_poses) == 3 and s.keyframes.frames\n"
         "assert s.n_win_dispatched == 2 and s.n_joint_refines > 0, "
         "(s.n_win_dispatched, s.n_joint_refines)\n"
-        "s2 = MultiMotSystem(cfg, keyframe_gap=1, enable_loop_closing=False)\n"
+        "s2 = MultiMotSystem(cfg, keyframe_gap=1, enable_loop_closing=False, device='cpu')\n"
         "s2.track_rgbd(fr[0]); s2.track_rgbd(fr[1])\n"
         "s2.min_inliers = 10 ** 6\n"
         "s2.track_rgbd(fr[2])\n"

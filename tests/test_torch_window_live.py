@@ -102,13 +102,13 @@ def test_window_checkpoint_resume(frames, sync_runs, tmp_path):
     the remaining frames track exactly as the unbroken run."""
     _, _, _, t, _ = sync_runs
     s = TSystem(TCFG, seed=SEED, keyframe_gap=1, enable_loop_closing=False,
-                sampler=jax_sampler())
+                sampler=jax_sampler(), device="cpu")
     for fd in frames[:3]:
         s.track_rgbd(fd)
     assert len(s._win) == 3
     s.save_checkpoint(tmp_path / "ck.pkl")
     r = TSystem(TCFG, seed=SEED, keyframe_gap=1, enable_loop_closing=False,
-                sampler=jax_sampler())
+                sampler=jax_sampler(), device="cpu")
     r.load_checkpoint(tmp_path / "ck.pkl")
     assert [w["row"] for w in r._win] == [0, 1, 2]
     for fd in frames[3:]:
