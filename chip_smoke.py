@@ -23,12 +23,15 @@ Phases, in order; any failure exits non-zero before the result lines:
      once through the kernel (counting its launches) and once with the plain
      flow-BA, then ``run_sequence_streaming`` (chunk 4) once; ms per pair
      after a warm-up, peak memory, per-pair camera and object errors;
-  5. K2 against its plain torch version on the card at the live path's two
-     shapes: 3 x 1024 local-map queries against 1024 keypoints (r = 12) and
-     the fuse scan's 4 x 1024 against 1024 (r = 6); seeded inputs with
-     duplicate descriptors (ties), invalid rows and one all-masked row;
-     best / second / index must be exactly equal; ms per call of both, the
-     profiler's device time and the bound from the gated pairs;
+  5. K2 against its plain torch version on the card at its three path
+     shapes: 3 x 1024 local-map queries against 1024 keypoints (r = 12),
+     the fuse scan's 4 x 1024 against 1024 (r = 6) and the window tracks'
+     3072 against 3072 (r = 15); seeded inputs with duplicate descriptors
+     (ties), invalid rows and one all-masked row; best / second / index
+     must be exactly equal and the call must be one device kernel; ms per
+     call of both, the profiler's device time by kernel, the empty kernel
+     on the same grid (the floor of one launch) and the bound from the
+     gated pairs; ``--k2-only`` runs phases 1, 2 and 5 alone;
   6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG (trailing-window
      BA every frame, joint ego+object window BA at keyframe cadence,
      keyframes every 5 frames, fused TrackLocalMap, fusion and culling,
@@ -174,9 +177,10 @@ def k1_bound_us(args, out, iters):
             1e6 * t_ops, 1e6 * t_bytes)
 
 
-def device_kernels(fn, reps=10):
-    """(device kernels per call, device us per call) of ``fn`` over ``reps``
-    calls under the profiler (CUPTI's kernel records), after a warm-up."""
+def kernel_split(fn, reps=10):
+    """{device kernel name: (launches per call, mean device us per launch)}
+    of ``fn`` over ``reps`` calls under the profiler (CUPTI's kernel
+    records), after a warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -186,9 +190,32 @@ def device_kernels(fn, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-          and not e.name.startswith(("Memcpy", "Memset"))]
-    return len(ev) / reps, sum(e.time_range.elapsed_us() for e in ev) / reps
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.name.startswith(("Memcpy", "Memset")):
+            n, us = split.get(e.name, (0, 0.0))
+            split[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return {k: (n / reps, us / n) for k, (n, us) in split.items()}
+
+
+def per_call_us(split) -> float:
+    """Device us per call from a kernel split: each kernel's mean time per
+    launch times its launches per call, rounded (CUPTI can drop a record,
+    which reads as 0.9 launches per call)."""
+    return sum(us * max(1, round(n)) for n, us in split.values())
+
+
+def short_name(kernel: str) -> str:
+    """A device kernel's name without namespace, template and arguments."""
+    name = kernel.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("<")[0].split("(")[0].split("::")[-1]
+
+
+def device_kernels(fn, reps=10):
+    """(device kernels per call, device us per call) of ``fn``."""
+    split = kernel_split(fn, reps)
+    return sum(n for n, _ in split.values()), per_call_us(split)
 
 
 def phase_kernel_vs_plain(dev):
@@ -367,16 +394,51 @@ def make_match_problem(rng, L, N, M, radius):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
 
 
-def phase_match_kernel(dev):
+def k2_shapes():
+    """K2's three path shapes: (name, L, N, M, radius)."""
+    return (("local map 3x1024 vs 1024, r=12", 1, 3072, 1024, 12.0),
+            ("fuse scan 4 x 1024 vs 1024, r=6", 4, 1024, 1024, 6.0),
+            ("window tracks 3072 vs 3072, r=15", 1, 3072, 3072, 15.0))
+
+
+def k2_empty_launch(dev, rows, M):
+    """A callable launching the empty kernel on the grid K2's plan gives
+    (rows, M): the floor one launch of that grid costs."""
+    import torch
+
+    from multimot_track_tpu_torch.ops import match_cuda
+
+    C, T = match_cuda.match_plan(rows, M)
+    lib = match_cuda._lib()
+
+    def empty():
+        rc = lib.match_projected_empty_launch(rows, C, T, torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise SystemExit(f"the empty launch failed with CUDA error {rc}")
+    return empty
+
+
+def phase_match_kernel(dev, strict=True):
+    """K2 against its plain version at its path shapes.  ``strict``: the
+    kernel must be one device kernel per call, and the empty launch on its
+    grid is timed beside it (tools/k2_ab.py passes False to time earlier
+    trees' kernels the same way)."""
     import torch
 
     from multimot_track_tpu_torch.ops import matching
     from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
 
+    if strict:
+        from multimot_track_tpu_torch.ops import match_cuda
+
+        held = {C: match_cuda._lib().match_projected_max_clusters(C) for C in match_cuda.RESIDENT}
+        log(f"[K2] clusters the card holds at once, by cluster size: {held} "
+            f"(the plan assumes {match_cuda.RESIDENT})")
+        if held != match_cuda.RESIDENT:
+            raise SystemExit("K2's cluster residency differs from what its plan assumes")
     rng = np.random.default_rng(1)
     figures = []
-    for name, L, N, M, radius in (("local map 3x1024 vs 1024, r=12", 1, 3072, 1024, 12.0),
-                                  ("fuse scan 4 x 1024 vs 1024, r=6", 4, 1024, 1024, 6.0)):
+    for name, L, N, M, radius in k2_shapes():
         args = [a.to(dev) for a in make_match_problem(rng, L, N, M, radius)]
         run_k = lambda: match_projected_cuda(*args, radius=radius)
         run_p = lambda: matching.match_projected_plain(*args, radius=radius)
@@ -389,17 +451,35 @@ def phase_match_kernel(dev):
         ties = int(((bk == sk) & (bk < 1e9)).sum())
         ms_k = time_ms(run_k, rounds=5, reps=20)
         ms_p = time_ms(run_p, rounds=5, reps=5)
-        n_kern, us_dev = device_kernels(run_k)
+        split = kernel_split(run_k)
+        n_kern = sum(n for n, _ in split.values())
+        us_dev = per_call_us(split)
         bound_us, bound_by, n_pairs = k2_bound_us(args, (bk, sk, ik), radius)
         log(f"[K2] {name}: {n_diff} differing outputs of {3 * L * N} (must be 0), "
             f"max|d dist| {err:.1f}, {ties} rows with a tied best/second | kernel "
             f"{ms_k:.4f} ms/call (wrapper, CUDA events), {us_dev / 1e3:.4f} ms device "
-            f"({n_kern:.0f} kernels, profiler), plain {ms_p:.4f} ms/call | bound "
-            f"{bound_us:.3f} us by {bound_by} ({n_pairs} gated pairs)")
+            f"({n_kern:.1f} kernels per call, profiler), plain {ms_p:.4f} ms/call | bound "
+            f"{bound_us:.3f} us by {bound_by} ({n_pairs} gated pairs), "
+            f"{100 * bound_us / max(us_dev, 1e-9):.2f} % of bound")
+        log(f"[K2] {name}: device kernels per call x mean us: "
+            + "; ".join(f"{short_name(k)} x{n:.1f} {us:.2f}" for k, (n, us) in split.items()))
+        fig = dict(stage=name, max_abs_err=err, ms=us_dev / 1e3, wrapper_ms=ms_k,
+                   plain_ms=ms_p, bound_ms=bound_us / 1e3, bound_by=bound_by,
+                   kernels_per_call=n_kern,
+                   split={short_name(k): (n, us / 1e3) for k, (n, us) in split.items()})
         if n_diff:
             raise SystemExit(f"K2 disagrees with its plain version on {name}")
-        figures.append(dict(stage=name, max_abs_err=err, ms=us_dev / 1e3, wrapper_ms=ms_k,
-                            plain_ms=ms_p, bound_ms=bound_us / 1e3, bound_by=bound_by))
+        if strict:
+            # a record CUPTI drops reads as 0.9; a second kernel would read 2
+            if round(n_kern) != 1 or any("match_projected_kernel" not in k for k in split):
+                raise SystemExit(f"K2 ran {n_kern} device kernels per call on {name}: {split}")
+            _, us_empty = device_kernels(k2_empty_launch(dev, L * N, M))
+            fig["empty_ms"] = us_empty / 1e3
+            C, T = match_cuda.match_plan(L * N, M)
+            log(f"[K2] {name}: plan C = {C} CTAs per cluster, T = {T} threads per query, "
+                f"{-(-L * N // (match_cuda.THREADS // T)) * C} CTAs; the empty kernel on the "
+                f"same grid {us_empty / 1e3:.4f} ms device (profiler)")
+        figures.append(fig)
     return figures
 
 
@@ -659,6 +739,9 @@ def main(argv) -> int:
         for line in kernels.build_log(name).splitlines():
             if "ptxas" in line or "seconds" in line:
                 log(f"[build] {name}: {line.strip()}")
+    if "--k2-only" in argv:                 # phases 1, 2 and 5 alone, no result lines
+        phase_match_kernel(dev)
+        return 0
     k1 = phase_kernel_vs_plain(dev)
     if "--k1-only" in argv:                 # phases 1-3 alone, no result lines
         return 0

@@ -3,12 +3,12 @@
 The kernel (csrc/match_projected.cu) replaces the TPU kernel
 ``multimot_track_tpu.ops.pallas_match.fused_match_projected``: per query it
 returns the best and second-best gated Hamming distance and the best index
-without forming the N x M matrix.  This wrapper checks its inputs,
-allocates the outputs and the packed-bit scratch, launches on PyTorch's
-current stream and raises if a launch is refused.
-``match_projected_cuda.launches`` counts calls that launched.  The plain
-version is ``ops/matching.match_projected_plain``; there is no fallback to
-it here.
+without forming the N x M matrix.  It packs the descriptors' signs on chip
+and writes the int64 index itself, so this wrapper only checks its inputs,
+allocates the outputs with ``torch.empty``, launches once on PyTorch's
+current stream and raises if the launch is refused.
+``match_projected_cuda.launches`` counts launches.  The plain version is
+``ops/matching.match_projected_plain``; there is no fallback to it here.
 """
 
 from __future__ import annotations
@@ -20,21 +20,88 @@ import torch
 
 from multimot_track_tpu_torch import kernels
 
+SMS = 132             # streaming multiprocessors of an H100 SXM
+THREADS = 512         # threads per CTA (csrc/match_projected.cu kThreads)
+SLOTS = 512           # references a CTA stages in shared memory per tile (kSlots)
+MAX_CLUSTER = 8       # the portable cluster size
+MIN_REFS = 8          # references per thread below which more threads per query do not pay
+THREADS_PER_QUERY = (4, 8, 16, 32)
+# clusters of C CTAs the card holds at once (cudaOccupancyMaxActiveClusters
+# on an H100 SXM; chip_smoke.py checks it)
+RESIDENT = {1: 264, 2: 132, 4: 62, 8: 30}
+
+
+def match_plan(rows: int, M: int) -> tuple[int, int]:
+    """(C, T) for ``rows`` queries against ``M`` references: clusters of C
+    CTAs, each owning ceil(M / C) references, and T threads per query, so
+    Q = 512 / T queries per cluster.  C is the largest power of two up to 8
+    that leaves 4 threads a query MIN_REFS references each; T starts at 4
+    and doubles while the CTAs do not cover the card's SMs once and each
+    thread keeps MIN_REFS references; then C halves until all clusters fit
+    on the card at once (RESIDENT), so the launch runs in one wave."""
+    C = MAX_CLUSTER
+    while C > 1 and M < C * THREADS_PER_QUERY[0] * MIN_REFS:
+        C //= 2
+    T = THREADS_PER_QUERY[0]
+    while (T < THREADS_PER_QUERY[-1] and -(-rows // (THREADS // T)) * C < SMS
+           and -(-M // C) >= 2 * T * MIN_REFS):
+        T *= 2
+    while C > 1 and -(-rows // (THREADS // T)) > RESIDENT[C]:
+        C //= 2
+    return C, T
+
+
+def ref_slices(M: int, C: int, T: int) -> list[tuple[int, int]]:
+    """Every thread's references as the kernel cuts them, in the order the
+    kernel merges them: for each CTA rank its share ceil(M / C), for each
+    tile of up to SLOTS references of the share, the T threads' contiguous
+    sub-slices [begin, end) (empty ones included)."""
+    S = -(-M // C)
+    out = []
+    for r in range(C):
+        b0, b1 = min(r * S, M), min(r * S + S, M)
+        for j0 in range(b0, b1, SLOTS):
+            n = min(SLOTS, b1 - j0)
+            length = -(-n // T)
+            out += [(j0 + min(t * length, n), j0 + min(t * length + length, n))
+                    for t in range(T)]
+    return out
+
+
+def smem_bytes() -> int:
+    """Static shared memory of one CTA, as the kernel lays it out: a tile's
+    packed references (32 B) and padded positions (8 B), the packed queries
+    (32 B) and the partial results (16 B, per query and cluster rank)."""
+    max_q = THREADS // THREADS_PER_QUERY[0]
+    return SLOTS * 32 + (SLOTS + 40) * 8 + max_q * 32 + (max_q + MAX_CLUSTER) * 16
+
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """Build (at first use) and bind csrc/match_projected.cu's C interface."""
-    lib = kernels.load("match_projected")
+def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (at first use) and bind csrc/match_projected.cu's C interface
+    (``defines``: a diagnostic build, tools/k2_probe.py)."""
+    lib = kernels.load("match_projected", defines)
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.match_projected_launch.argtypes = [vp] * 8 + [i, i, i, f] + [vp] * 4
-    lib.match_projected_launch.restype = ctypes.c_int
+    lib.match_projected_launch.argtypes = [vp] * 9 + [i] * 4 + [f, vp]
+    lib.match_projected_launch.restype = i
+    lib.match_projected_empty_launch.argtypes = [i, i, i, vp]
+    lib.match_projected_empty_launch.restype = i
+    lib.match_projected_max_clusters.argtypes = [i]
+    lib.match_projected_max_clusters.restype = i
+    lib.match_projected_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
+    threads, slots = i(), i()
+    lib.match_projected_shape(ctypes.byref(threads), ctypes.byref(slots))
+    if (threads.value, slots.value) != (THREADS, SLOTS):
+        raise RuntimeError("match_projected: the kernel and the wrapper disagree on its shape")
     return lib
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, and 16-byte aligned for the kernel's vector loads."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+def _check_layout(name: str, t: torch.Tensor, align: int) -> None:
+    """The kernel reads ``t`` in place: contiguous, ``align``-byte aligned."""
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (strides {t.stride()})")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary (pointer {t.data_ptr()})")
 
 
 def match_projected_cuda(
@@ -48,50 +115,47 @@ def match_projected_cuda(
 ):
     """Returns (best, second, idx), each (..., N): float32, float32, int64.
     Same contract as ``matching.match_projected_plain``; every leading axis
-    of the queries is one batch of the single launch."""
+    of the queries is one batch of the single launch.  The tensors are read
+    in place: each must be contiguous (and aligned, as fresh allocations
+    are)."""
+    lead, n = tuple(desc_a.shape[:-2]), desc_a.shape[-2]
+    m = desc_b.shape[0]
+    named = (("desc_a", desc_a, lead + (n, 256), torch.int8),
+             ("uv_pred", uv_pred, lead + (n, 2), torch.float32),
+             ("valid_a", valid_a, lead + (n,), torch.bool),
+             ("desc_b", desc_b, (m, 256), torch.int8),
+             ("uv_b", uv_b, (m, 2), torch.float32),
+             ("valid_b", valid_b, (m,), torch.bool))
+    dev = desc_a.device
+    for name, t, shape, dtype in named:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        _check_layout(name, t, {torch.int8: 16, torch.float32: 8, torch.bool: 1}[dtype])
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, desc_a on {dev}")
+    if m < 1:
+        raise ValueError("match_projected_cuda needs at least one reference")
     if not desc_a.is_cuda:
         raise ValueError("match_projected_cuda needs CUDA tensors; "
                          "use backend='torch' for CPU tensors")
-    lead, n = tuple(desc_a.shape[:-2]), desc_a.shape[-2]
-    m = desc_b.shape[0]
-    dev = desc_a.device
-    for name, t, shape, dtype in (
-        ("desc_a", desc_a, lead + (n, 256), torch.int8),
-        ("uv_pred", uv_pred, lead + (n, 2), torch.float32),
-        ("valid_a", valid_a, lead + (n,), torch.bool),
-        ("desc_b", desc_b, (m, 256), torch.int8),
-        ("uv_b", uv_b, (m, 2), torch.float32),
-        ("valid_b", valid_b, (m,), torch.bool),
-    ):
-        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
-            raise ValueError(f"{name}: expected {shape} {dtype} on {dev}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    if m < 1:
-        raise ValueError("match_projected_cuda needs at least one reference")
-    L = 1
-    for s in lead:
-        L *= s
-    args = [_aligned(t) for t in (desc_a, uv_pred, valid_a.view(torch.uint8),
-                                  desc_b, uv_b, valid_b.view(torch.uint8))]
-    bits_a = torch.empty((L * n, 8), dtype=torch.int32, device=dev)
-    bits_b = torch.empty((m, 8), dtype=torch.int32, device=dev)
     best = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     second = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
-    idx = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
-    lib = _lib()
+    idx = torch.empty(lead + (n,), dtype=torch.int64, device=dev)
+    rows = best.numel()
+    if rows == 0:
+        return best, second, idx
+    C, T = match_plan(rows, m)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.match_projected_launch(
-            *(t.data_ptr() for t in args), bits_a.data_ptr(), bits_b.data_ptr(),
-            L, n, m, float(radius) * float(radius),
-            best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream,
+        rc = _lib().match_projected_launch(
+            *(t.data_ptr() for _, t, _, _ in named), best.data_ptr(), second.data_ptr(),
+            idx.data_ptr(), rows, m, C, T,
+            float(radius) * float(radius), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"match_projected launch failed with CUDA error {rc} "
-                           f"(L={L}, N={n}, M={m})")
-    if L * n > 0:                  # the C side launches nothing for empty queries
-        match_projected_cuda.launches += 1
-    return best, second, idx.to(torch.int64)
+                           f"(rows={rows}, M={m}, cluster {C}, {T} threads per query)")
+    match_projected_cuda.launches += 1
+    return best, second, idx
 
 
 match_projected_cuda.launches = 0

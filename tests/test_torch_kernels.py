@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from multimot_track_tpu_torch.geometry import camera, se3
-from multimot_track_tpu_torch.ops import matching
+from multimot_track_tpu_torch.ops import match_cuda, matching
 from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
 from multimot_track_tpu_torch.solvers import flow_ba, flow_ba_cuda
 from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
@@ -274,6 +274,7 @@ def test_match_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("L,N,M,radius", [
     (1, 3072, 1024, 12.0),     # TrackLocalMap: 3 keyframes x 1024 against the frame's 1024
     (4, 1024, 1024, 6.0),      # the fuse scan: 4 previous keyframes against the new one
+    (1, 3072, 3072, 15.0),     # window tracks: one frame's keypoints against the next's
     (2, 333, 77, 15.0),        # ragged query tile, references not a tile multiple
 ])
 def test_match_kernel_equals_plain_version(cuda_device, L, N, M, radius):
@@ -289,3 +290,171 @@ def test_match_kernel_equals_plain_version(cuda_device, L, N, M, radius):
     r = matching.match_projected_auto(*args, radius=radius)
     assert match_projected_cuda.launches == before + 2
     assert torch.equal(r.idx, ip)
+
+
+# K2's plan: path shapes, a ragged query count, M = 1, M not a multiple of
+# C * T, and M beyond one tile of every CTA of a cluster of 8
+MATCH_PLAN_SHAPES = [(3072, 1024), (4096, 1024), (3072, 3072), (1024, 1024), (2048, 1024),
+                     (999, 1024), (666, 77), (300, 1), (1400, 1001), (64, 12000),
+                     (5000, 40000)]
+
+
+@pytest.mark.parametrize("rows,M", MATCH_PLAN_SHAPES)
+def test_match_plan_covers_every_reference_once(rows, M):
+    C, T = match_cuda.match_plan(rows, M)
+    assert 1 <= C <= match_cuda.MAX_CLUSTER and T in match_cuda.THREADS_PER_QUERY
+    assert match_cuda.smem_bytes() <= 48 * 1024            # static: at most 48 KB
+    assert 2 * match_cuda.smem_bytes() <= 227 * 1024        # two CTAs per SM
+    slices = match_cuda.ref_slices(M, C, T)
+    seen = np.zeros(M, np.int64)
+    end = 0
+    for b, e in slices:                    # ascending and contiguous, in merge order
+        assert b <= e and (b == e or b == end)
+        seen[b:e] += 1
+        end = max(end, e)
+    assert (seen == 1).all()
+    S = -(-M // C)
+    tiles = sum(-(-(min(r * S + S, M) - min(r * S, M)) // match_cuda.SLOTS) for r in range(C))
+    assert len(slices) == tiles * T
+    assert all(e - b <= -(-match_cuda.SLOTS // T) for b, e in slices)
+    clusters = -(-rows // (match_cuda.THREADS // T))
+    assert C == 1 or clusters <= match_cuda.RESIDENT[C]      # one wave
+    # the live shapes spread over the card in one wave: 192 CTAs in
+    # clusters of 8; the fuse scan's 32 clusters in clusters of 4
+    expect = {(3072, 1024): (8, 4), (3072, 3072): (8, 4), (4096, 1024): (4, 4)}
+    assert (C, T) == expect.get((rows, M), (C, T))
+    if M >= 12000:
+        assert tiles > C                   # some CTA walks its share in several tiles
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(desc_a=lambda a: a.float()), "desc_a"),
+    (dict(uv_pred=lambda a: a.double()), "uv_pred"),
+    (dict(valid_a=lambda a: a.to(torch.uint8)), "valid_a"),
+    (dict(desc_b=lambda a: a[:, :128]), "desc_b"),
+    (dict(valid_b=lambda a: a[:-1]), "valid_b"),
+    (dict(desc_a=lambda a: torch.cat([a, a], -1)[..., ::2]), "desc_a must be contiguous"),
+    (dict(uv_pred=lambda a: a.transpose(0, 1).contiguous().transpose(0, 1)),
+     "uv_pred must be contiguous"),
+    (dict(valid_b=lambda a: torch.stack([a, a], 1)[:, 0]), "valid_b must be contiguous"),
+    (dict(uv_b=lambda a: torch.cat([torch.zeros(1), a.flatten()])[1:].view(-1, 2)),
+     "uv_b must start on a 8-byte"),
+    (dict(desc_b=lambda a: torch.cat([a.new_zeros(8), a.flatten()])[8:].view(-1, 256)),
+     "desc_b must start on a 16-byte"),
+    (dict(desc_b=lambda a: a[:0], uv_b=lambda a: a[:0], valid_b=lambda a: a[:0]),
+     "at least one reference"),
+])
+def test_match_wrapper_checks_raise_before_any_cuda_call(monkeypatch, bad, match):
+    monkeypatch.setattr(match_cuda, "_lib", _no_cuda_call)
+    names = ("desc_a", "uv_pred", "valid_a", "desc_b", "uv_b", "valid_b")
+    kw = dict(zip(names, match_problem(2, 24, 40, 12.0)))
+    for name, fix in bad.items():
+        kw[name] = fix(kw[name])
+    with pytest.raises(ValueError, match=match):
+        match_projected_cuda(**kw, radius=12.0)
+
+
+def _merge(lo, hi):
+    """The kernel's merge of a lower slice's (best, second, idx) with the
+    next higher slice's."""
+    take = hi[0] < lo[0]
+    return (torch.where(take, hi[0], lo[0]),
+            torch.where(take, torch.minimum(hi[1], lo[0]), torch.minimum(lo[1], hi[0])),
+            torch.where(take, hi[2], lo[2]))
+
+
+def _match_variant(args, variant):
+    desc_a, uv_a, va, desc_b, uv_b, vb = args
+    if variant == "identical":             # every gated distance 0: ties everywhere
+        desc_a = desc_b[:1].expand(desc_a.shape).clone()
+        desc_b = desc_b[:1].expand(desc_b.shape).clone()
+    elif variant == "no_valid_refs":       # every candidate gated out
+        vb = torch.zeros_like(vb)
+    return desc_a, uv_a, va, desc_b, uv_b, vb
+
+
+@pytest.mark.parametrize("L,N,M,radius,variant", [
+    (2, 333, 1001, 15.0, "ties"),
+    (1, 64, 12000, 15.0, "ties"),          # three tiles per CTA
+    (3, 100, 1024, 12.0, "identical"),
+    (2, 100, 77, 15.0, "no_valid_refs"),
+    (1, 50, 1, 15.0, "ties"),
+])
+def test_match_merge_rule_equals_full_plain(L, N, M, radius, variant):
+    """The plain version on each thread's slice of the references (indices
+    offset), merged in ascending order by the kernel's rule, equals the
+    plain version on all of them: ties, all-gated rows and empty slices."""
+    args = _match_variant(match_problem(L, N, M, radius, seed=M + N), variant)
+    desc_a, uv_a, va, desc_b, uv_b, vb = args
+    C, T = match_cuda.match_plan(L * N, M)
+    inf = torch.full((L, N), float("inf"))
+    acc = (inf, inf, torch.zeros((L, N), dtype=torch.int64))
+    n_empty = 0
+    for b, e in match_cuda.ref_slices(M, C, T):
+        if b == e:
+            part = inf, inf, torch.zeros_like(acc[2])
+            n_empty += 1
+        else:
+            best, second, idx = matching.match_projected_plain(
+                desc_a, uv_a, va, desc_b[b:e], uv_b[b:e], vb[b:e], radius)
+            part = best, second, idx + b
+        acc = _merge(acc, part)
+    full = matching.match_projected_plain(*args, radius=radius)
+    for x, y in zip(acc, full):
+        assert torch.equal(x, y)
+    if variant == "no_valid_refs":
+        assert (full[0] == 1e9).all() and (full[2] == 0).all()
+    if M == 1:
+        assert n_empty > 0
+
+
+MATCH_EDGE_CASES = {
+    "M=1": (1, 300, 1, 15.0, "ties"),
+    "M not a multiple of C*T": (2, 700, 1001, 12.0, "ties"),
+    "tiled shared memory": (1, 640, 12000, 15.0, "ties"),
+    "identical descriptors": (3, 256, 1024, 12.0, "identical"),
+    "no valid reference": (2, 300, 500, 15.0, "no_valid_refs"),
+    "ragged query tile": (3, 333, 1024, 12.0, "ties"),
+    "every pair gated in": (1, 300, 700, 2000.0, "ties"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MATCH_EDGE_CASES))
+def test_match_kernel_edge_cases_equal_plain_version(cuda_device, case):
+    L, N, M, radius, variant = MATCH_EDGE_CASES[case]
+    args = _match_variant(match_problem(L, N, M, radius, seed=L * N + M, device=cuda_device),
+                          variant)
+    bk, sk, ik = match_projected_cuda(*args, radius=radius)
+    bp, sp, ip = matching.match_projected_plain(*args, radius=radius)
+    assert torch.equal(bk, bp) and torch.equal(sk, sp) and torch.equal(ik, ip)
+    assert ik.dtype == torch.int64
+
+
+@pytest.mark.gpu
+def test_match_kernel_one_device_kernel_and_repeats(cuda_device):
+    """One device kernel per call and nothing else on the stream; two
+    launches agree in every bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = match_problem(1, 3072, 1024, 12.0, seed=11, device=cuda_device)
+    first = match_projected_cuda(*args, radius=12.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = match_projected_cuda(*args, radius=12.0)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "match_projected_kernel" in kernels[0], kernels
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_match_kernel_no_queries_launches_nothing(cuda_device):
+    desc_a, uv_a, va, desc_b, uv_b, vb = match_problem(1, 8, 64, 12.0, device=cuda_device)
+    before = match_projected_cuda.launches
+    best, second, idx = match_projected_cuda(desc_a[:, :0], uv_a[:, :0], va[:, :0],
+                                             desc_b, uv_b, vb, radius=12.0)
+    assert best.shape == second.shape == idx.shape == (1, 0) and idx.dtype == torch.int64
+    assert match_projected_cuda.launches == before
