@@ -27,14 +27,15 @@
 //    packed inside the kernel, which writes idx as int64; the wrapper only
 //    checks, allocates the outputs and launches.
 //  - The L x N queries are one run of rows (the references are shared).  A
-//    tile of Q = 512 / T queries goes to one thread-block cluster of C CTAs
-//    (C and T from the wrapper's plan, ops/match_cuda.match_plan): CTA rank
-//    r owns the contiguous share [r S, r S + S) of the references,
+//    tile of kQ = 128 queries goes to one thread-block cluster of C CTAs
+//    (C from the wrapper's plan, ops/match_cuda.match_plan): CTA rank r
+//    owns the contiguous share [r S, r S + S) of the references,
 //    S = ceil(M / C), and packs it into shared memory with the positions.
-//    T consecutive threads work on one query, each scanning a contiguous
-//    sub-slice of the CTA's references in ascending order with strict `<`
-//    updates.  At the path shapes that is 128-192 CTAs of 16 warps on 132
-//    SMs.
+//    kT = 4 consecutive threads work on one query, each scanning a
+//    contiguous sub-slice of the CTA's references in ascending order with
+//    strict `<` updates.  At the path shapes that is 64-192 CTAs of 16
+//    warps on 132 SMs.  More threads per query (8-32, more CTAs) ran
+//    slower at every live shape (tools/k2_plan_sweep.py, PERF.md).
 //  - Bytes from L2 bound the packing: every cluster reads all M reference
 //    descriptors.  So each query is read once per cluster, not once per
 //    CTA: rank r packs 1/C of the tile's queries, and after one cluster
@@ -57,14 +58,14 @@
 //    __fsub_rn / __fmul_rn / __fadd_rn, so that FMA contraction cannot move
 //    a point across the radius relative to the plain version.
 //  - A share larger than kSlots references is walked in tiles of kSlots;
-//    each tile is cut into T contiguous sub-slices of at most 128.
+//    each tile is cut into kT contiguous sub-slices of at most 128.
 //  - Exact merge in fixed order, lower slice P1 with higher slice P2: if
 //    P2.best < P1.best the result is (P2.best, P2.idx, min(P2.second,
 //    P1.best)), else (P1.best, P1.idx, min(P1.second, P2.best)).  A slice
 //    with no references reports (+inf, 0, +inf) and never wins; a slice
 //    whose candidates are all gated out reports (1e9, its first index, 1e9),
 //    so a row with nothing gated ends at (1e9, 1e9, 0) as the plain version
-//    gives.  Order: the T sub-slices of a tile by a shuffle butterfly, the
+//    gives.  Order: the kT sub-slices of a tile by a shuffle butterfly, the
 //    tiles in order, then the C CTAs' partials in rank order: the rank that
 //    packed a query merges and writes it, and the other CTAs store their
 //    partials into its shared memory (one 16-byte store each) before the
@@ -82,35 +83,13 @@ namespace {
 
 constexpr int kThreads = 512;     // threads per CTA (ops/match_cuda.py THREADS)
 constexpr int kSlots = 512;       // references a CTA stages per tile (SLOTS)
-constexpr int kMinT = 4;          // threads per query at the least
-constexpr int kMaxQ = kThreads / kMinT;
+constexpr int kT = 4;             // threads per query (THREADS_PER_QUERY)
+constexpr int kQ = kThreads / kT;  // queries per cluster
 constexpr int kMaxCluster = 8;
 constexpr int kBits = 256;       // descriptor bytes
 constexpr int kBatch = 8;         // 16-byte loads a lane has in flight while packing
 constexpr int kChunk = 8;         // gate tests issued together
 constexpr float kBig = 1e9f;
-
-// Timestamps of thread 0 of each CTA at the kernel's phase boundaries, in
-// a diagnostic build only (-DMATCH_PROBE, tools/k2_probe.py).
-#ifdef MATCH_PROBE
-constexpr int kProbes = 6;
-constexpr int kProbeCtas = 4096;
-__device__ unsigned long long g_probe[kProbeCtas * kProbes * 3];
-__device__ __forceinline__ void probe(int k) {
-  if (threadIdx.x == 0 && blockIdx.x < kProbeCtas) {
-    unsigned long long ns;
-    unsigned int sm;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
-    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-    unsigned long long* rec = g_probe + (blockIdx.x * kProbes + k) * 3;
-    rec[0] = ns;
-    rec[1] = clock64();
-    rec[2] = sm;
-  }
-}
-#else
-__device__ __forceinline__ void probe(int) {}
-#endif
 
 struct Args {
   const int8_t* desc_a;    // (rows, 256), all inputs contiguous
@@ -119,10 +98,10 @@ struct Args {
   const int8_t* desc_b;    // (m, 256)
   const float2* uv_b;      // (m,)
   const uint8_t* valid_b;  // (m,) bool
-  float* best;                            // (rows,)
-  float* second;                          // (rows,)
-  long long* idx;                         // (rows,) int64
-  int rows, m, t;                         // t: threads per query
+  float* best;             // (rows,)
+  float* second;           // (rows,)
+  long long* idx;          // (rows,) int64
+  int rows, m;
   float r2;
 };
 
@@ -180,18 +159,16 @@ __device__ __forceinline__ void pack(const int8_t* __restrict__ src0, int first0
 
 __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args a) {
   __shared__ uint4 s_bits[kSlots][2];         // a tile's references, packed
-  __shared__ float2 s_uv[kSlots + 32 + kChunk];   // their positions (NaN: invalid); sub-slice t at offset t
-  __shared__ uint4 s_q[kMaxQ][2];             // this rank's share of the tile's queries, packed
-  __shared__ float4 s_part[kMaxQ + kMaxCluster];  // [rank][query] partials of the queries this CTA writes
+  __shared__ float2 s_uv[kSlots + kT + kChunk];  // their positions (NaN: invalid); sub-slice t at offset t
+  __shared__ uint4 s_q[kQ][2];                // this rank's share of the tile's queries, packed
+  __shared__ float4 s_part[kQ + kMaxCluster];  // [rank][query] partials of the queries this CTA writes
 
-  probe(0);
   cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
-  const int T = a.t, Q = kThreads / T;
-  const int q0 = (int)(blockIdx.x / C) * Q;   // clusters are consecutive blocks
-  const int nq = min(Q, a.rows - q0);
-  const int qi = threadIdx.x / T, t = threadIdx.x % T, lane = threadIdx.x & 31;
-  const int per = (Q + C - 1) / C;            // queries each rank packs, merges and writes
+  const int q0 = (int)(blockIdx.x / C) * kQ;  // clusters are consecutive blocks
+  const int nq = min(kQ, a.rows - q0);
+  const int qi = threadIdx.x / kT, t = threadIdx.x % kT, lane = threadIdx.x & 31;
+  const int per = (kQ + C - 1) / C;           // queries each rank packs, merges and writes
   const float nan = __int_as_float(0x7fc00000);
 
   float2 p = make_float2(nan, nan);
@@ -209,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args
   // the first tile, even of an empty share, packs this rank's queries
   for (int j0 = b0; j0 < b1 || j0 == b0; j0 += kSlots) {
     const int n = min(kSlots, b1 - j0);
-    const int len = max((n + T - 1) / T, 1);  // sub-slice t: [t len, t len + len) of the tile
+    const int len = max((n + kT - 1) / kT, 1);  // sub-slice t: [t len, t len + len) of the tile
     if (j0 > b0) __syncthreads();             // the previous tile is consumed
     const bool mine = (int)threadIdx.x < n;   // kSlots == kThreads: one reference a thread
     float2 u = make_float2(nan, nan);
@@ -222,10 +199,8 @@ __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args
     pack(a.desc_a, q0 + q_first, j0 == b0 ? q_n : 0, s_q, a.desc_b, j0, n, s_bits);
     if (mine) s_uv[threadIdx.x + threadIdx.x / len] = ok_b ? u : make_float2(nan, nan);
     if (j0 == b0) {
-      probe(1);
       // every rank's queries packed, and every CTA of the cluster started
       cl.sync();
-      probe(2);
       const int owner = qi / per;
       const uint4* w = *cl.map_shared_rank(&s_q[qi - owner * per], owner);
       const uint4 w0 = w[0], w1 = w[1];
@@ -265,9 +240,10 @@ __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args
         }
       }
     }
-    // the T sub-slices of the tile, lower lanes holding lower slices; every
+    // the kT sub-slices of the tile, lower lanes holding lower slices; every
     // lane of the group ends with the same result
-    for (int off = 1; off < T; off <<= 1) {
+#pragma unroll
+    for (int off = 1; off < kT; off <<= 1) {
       const Best o = {__shfl_xor_sync(0xffffffffu, v.best, off),
                       __shfl_xor_sync(0xffffffffu, v.second, off),
                       __shfl_xor_sync(0xffffffffu, v.idx, off)};
@@ -275,7 +251,6 @@ __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args
     }
     acc = merge(acc, v);
   }
-  probe(3);
   // rank r merges and writes its queries: every CTA stores its partial of
   // such a query into rank r's shared memory, then one cluster barrier, and
   // no CTA touches another's memory after it
@@ -285,7 +260,6 @@ __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args
         make_float4(acc.best, acc.second, __int_as_float(acc.idx), 0.f);
   }
   cl.sync();
-  probe(4);
   if ((int)threadIdx.x < q_n) {
     float4 f = s_part[threadIdx.x];
     Best v = {f.x, f.y, __float_as_int(f.z)};
@@ -298,21 +272,18 @@ __global__ void __launch_bounds__(kThreads, 2) match_projected_kernel(const Args
     a.second[q] = v.second;
     a.idx[q] = (long long)v.idx;
   }
-  probe(5);
 }
 
 // The same grid and clusters doing nothing: the floor one launch costs.
 __global__ void __launch_bounds__(kThreads) empty_kernel() {}
 
-cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int rows, int cluster, int t,
-                          cudaStream_t stream) {
+cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int rows, int cluster, cudaStream_t stream) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  const int q = kThreads / t;
-  cfg.gridDim = dim3(((rows + q - 1) / q) * cluster);
+  cfg.gridDim = dim3(((rows + kQ - 1) / kQ) * cluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -321,83 +292,56 @@ cudaLaunchConfig_t config(cudaLaunchAttribute* attr, int rows, int cluster, int 
   return cfg;
 }
 
-bool valid_plan(int cluster, int t) {
-  return cluster >= 1 && cluster <= kMaxCluster && (t == 4 || t == 8 || t == 16 || t == 32);
-}
+bool valid_cluster(int cluster) { return cluster >= 1 && cluster <= kMaxCluster; }
 
 }  // namespace
 
 extern "C" {
 
 // The kernel's fixed shape, for the wrapper to check its plan against.
-void match_projected_shape(int* threads, int* slots) {
+void match_projected_shape(int* threads, int* slots, int* per_query) {
   *threads = kThreads;
   *slots = kSlots;
+  *per_query = kT;
 }
 
 // Clusters of `cluster` CTAs the card can hold at once (0: it cannot
 // schedule one), or -1 on an error.
 int match_projected_max_clusters(int cluster) {
-  if (!valid_plan(cluster, kMinT)) return -1;
+  if (!valid_cluster(cluster)) return -1;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(attr, kThreads, cluster, kMinT, 0);
+  cudaLaunchConfig_t cfg = config(attr, kQ, cluster, 0);
   int n = 0;
   return cudaOccupancyMaxActiveClusters(&n, match_projected_kernel, &cfg) == cudaSuccess ? n : -1;
-}
-
-// 0 if the card can co-schedule a cluster of this size, else a CUDA error
-// code; asked of the card once per size.
-static int schedulable(int cluster) {
-  static int known[kMaxCluster + 1] = {};        // 0 unknown, 1 yes, -1 no
-  if (known[cluster] == 0) {
-    const int n = match_projected_max_clusters(cluster);
-    if (n < 0) {
-      const int err = (int)cudaGetLastError();
-      return err ? err : (int)cudaErrorUnknown;
-    }
-    known[cluster] = n > 0 ? 1 : -1;
-  }
-  return known[cluster] > 0 ? 0 : (int)cudaErrorLaunchOutOfResources;
 }
 
 // `rows` queries (desc_a (rows, 256) int8, uv_a (rows, 2) f32, valid_a
 // (rows,) u8) against `m` >= 1 references (desc_b, uv_b, valid_b
 // likewise); outputs (rows,) best, second (f32) and idx (int64).  All
 // contiguous; descriptors 16-byte aligned, positions 8-byte.  One launch of
-// ceil(rows / (512 / t)) clusters of `cluster` CTAs (1..8), `t` threads per
-// query (4, 8, 16 or 32) on `stream`.  Returns a CUDA error code (0 =
-// launched, or nothing to do); cudaErrorLaunchOutOfResources if the card
-// cannot schedule the cluster.
+// ceil(rows / 128) clusters of `cluster` CTAs (1..8) on `stream`.  Returns
+// a CUDA error code (0 = launched, or nothing to do); a cluster the card
+// cannot schedule is the launch's own error.
 int match_projected_launch(const int8_t* desc_a, const float* uv_a, const uint8_t* valid_a,
                            const int8_t* desc_b, const float* uv_b, const uint8_t* valid_b,
                            float* best, float* second, long long* idx, int rows, int m,
-                           int cluster, int t, float r2, void* stream) {
+                           int cluster, float r2, void* stream) {
   if (rows <= 0) return 0;
-  if (m < 1 || !valid_plan(cluster, t)) return (int)cudaErrorInvalidValue;
-  if (const int err = schedulable(cluster)) return err;
+  if (m < 1 || !valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   const Args a{desc_a, reinterpret_cast<const float2*>(uv_a), valid_a, desc_b,
-               reinterpret_cast<const float2*>(uv_b), valid_b, best, second, idx, rows, m, t, r2};
+               reinterpret_cast<const float2*>(uv_b), valid_b, best, second, idx, rows, m, r2};
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(attr, rows, cluster, t, (cudaStream_t)stream);
+  cudaLaunchConfig_t cfg = config(attr, rows, cluster, (cudaStream_t)stream);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, match_projected_kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-#ifdef MATCH_PROBE
-// The probes of the last launch: n CTAs x kProbes x (globaltimer ns,
-// clock64, SM id).
-int match_projected_probes(unsigned long long* out, int n) {
-  if (n < 0 || n > kProbeCtas) return (int)cudaErrorInvalidValue;
-  return (int)cudaMemcpyFromSymbol(out, g_probe, sizeof(unsigned long long) * n * kProbes * 3);
-}
-#endif
-
 // The empty kernel on the grid match_projected_launch would use.
-int match_projected_empty_launch(int rows, int cluster, int t, void* stream) {
-  if (rows <= 0 || !valid_plan(cluster, t)) return (int)cudaErrorInvalidValue;
+int match_projected_empty_launch(int rows, int cluster, void* stream) {
+  if (rows <= 0 || !valid_cluster(cluster)) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = config(attr, rows, cluster, t, (cudaStream_t)stream);
+  cudaLaunchConfig_t cfg = config(attr, rows, cluster, (cudaStream_t)stream);
   const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -40,21 +40,19 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME)")
 
 
-def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
+def build(name: str) -> pathlib.Path:
     """Compile csrc/<name>.cu (if its hashed output is missing) and return
-    the shared library's path; ``defines`` are extra ``-D`` macros (a
-    diagnostic build, kept apart by the hash).  Raises KernelBuildError
-    with the compiler's output on failure."""
+    the shared library's path.  Raises KernelBuildError with the compiler's
+    output on failure."""
     src = CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
@@ -65,9 +63,9 @@ def build(name: str, defines: tuple[str, ...] = ()) -> pathlib.Path:
     return lib
 
 
-def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """Build if needed and load csrc/<name>.cu's library."""
-    return ctypes.CDLL(str(build(name, defines)))
+    return ctypes.CDLL(str(build(name)))
 
 
 def build_log(name: str) -> str:

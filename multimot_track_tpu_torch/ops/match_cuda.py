@@ -20,43 +20,37 @@ import torch
 
 from multimot_track_tpu_torch import kernels
 
-SMS = 132             # streaming multiprocessors of an H100 SXM
 THREADS = 512         # threads per CTA (csrc/match_projected.cu kThreads)
 SLOTS = 512           # references a CTA stages in shared memory per tile (kSlots)
+THREADS_PER_QUERY = 4  # (kT), so a cluster takes THREADS / 4 = 128 queries
+GATE_CHUNK = 8        # gate tests the kernel issues together (kChunk)
 MAX_CLUSTER = 8       # the portable cluster size
-MIN_REFS = 8          # references per thread below which more threads per query do not pay
-THREADS_PER_QUERY = (4, 8, 16, 32)
+MIN_REFS = 8          # references per thread below which a wider cluster does not pay
 # clusters of C CTAs the card holds at once (cudaOccupancyMaxActiveClusters
 # on an H100 SXM; chip_smoke.py checks it)
 RESIDENT = {1: 264, 2: 132, 4: 62, 8: 30}
 
 
-def match_plan(rows: int, M: int) -> tuple[int, int]:
-    """(C, T) for ``rows`` queries against ``M`` references: clusters of C
-    CTAs, each owning ceil(M / C) references, and T threads per query, so
-    Q = 512 / T queries per cluster.  C is the largest power of two up to 8
-    that leaves 4 threads a query MIN_REFS references each; T starts at 4
-    and doubles while the CTAs do not cover the card's SMs once and each
-    thread keeps MIN_REFS references; then C halves until all clusters fit
-    on the card at once (RESIDENT), so the launch runs in one wave."""
+def match_plan(rows: int, M: int) -> int:
+    """C, the CTAs of each cluster, for ``rows`` queries against ``M``
+    references: each CTA owns ceil(M / C) of them.  C is the largest power
+    of two up to 8 that leaves each thread MIN_REFS references, halved
+    until all ceil(rows / 128) clusters fit on the card at once (RESIDENT),
+    so the launch runs in one wave."""
     C = MAX_CLUSTER
-    while C > 1 and M < C * THREADS_PER_QUERY[0] * MIN_REFS:
+    while C > 1 and M < C * THREADS_PER_QUERY * MIN_REFS:
         C //= 2
-    T = THREADS_PER_QUERY[0]
-    while (T < THREADS_PER_QUERY[-1] and -(-rows // (THREADS // T)) * C < SMS
-           and -(-M // C) >= 2 * T * MIN_REFS):
-        T *= 2
-    while C > 1 and -(-rows // (THREADS // T)) > RESIDENT[C]:
+    while C > 1 and -(-rows // (THREADS // THREADS_PER_QUERY)) > RESIDENT[C]:
         C //= 2
-    return C, T
+    return C
 
 
-def ref_slices(M: int, C: int, T: int) -> list[tuple[int, int]]:
+def ref_slices(M: int, C: int) -> list[tuple[int, int]]:
     """Every thread's references as the kernel cuts them, in the order the
     kernel merges them: for each CTA rank its share ceil(M / C), for each
-    tile of up to SLOTS references of the share, the T threads' contiguous
-    sub-slices [begin, end) (empty ones included)."""
-    S = -(-M // C)
+    tile of up to SLOTS references of the share, the THREADS_PER_QUERY
+    threads' contiguous sub-slices [begin, end) (empty ones included)."""
+    S, T = -(-M // C), THREADS_PER_QUERY
     out = []
     for r in range(C):
         b0, b1 = min(r * S, M), min(r * S + S, M)
@@ -71,27 +65,28 @@ def ref_slices(M: int, C: int, T: int) -> list[tuple[int, int]]:
 def smem_bytes() -> int:
     """Static shared memory of one CTA, as the kernel lays it out: a tile's
     packed references (32 B) and padded positions (8 B), the packed queries
-    (32 B) and the partial results (16 B, per query and cluster rank)."""
-    max_q = THREADS // THREADS_PER_QUERY[0]
-    return SLOTS * 32 + (SLOTS + 40) * 8 + max_q * 32 + (max_q + MAX_CLUSTER) * 16
+    (32 B) and the partial results (16 B, per query and cluster rank).
+    The positions are padded by one per sub-slice and by one gate chunk."""
+    q = THREADS // THREADS_PER_QUERY
+    return (SLOTS * 32 + (SLOTS + THREADS_PER_QUERY + GATE_CHUNK) * 8 + q * 32
+            + (q + MAX_CLUSTER) * 16)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build (at first use) and bind csrc/match_projected.cu's C interface
-    (``defines``: a diagnostic build, tools/k2_probe.py)."""
-    lib = kernels.load("match_projected", defines)
+def _lib() -> ctypes.CDLL:
+    """Build (at first use) and bind csrc/match_projected.cu's C interface."""
+    lib = kernels.load("match_projected")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.match_projected_launch.argtypes = [vp] * 9 + [i] * 4 + [f, vp]
+    lib.match_projected_launch.argtypes = [vp] * 9 + [i] * 3 + [f, vp]
     lib.match_projected_launch.restype = i
-    lib.match_projected_empty_launch.argtypes = [i, i, i, vp]
+    lib.match_projected_empty_launch.argtypes = [i, i, vp]
     lib.match_projected_empty_launch.restype = i
     lib.match_projected_max_clusters.argtypes = [i]
     lib.match_projected_max_clusters.restype = i
-    lib.match_projected_shape.argtypes = [ctypes.POINTER(i), ctypes.POINTER(i)]
-    threads, slots = i(), i()
-    lib.match_projected_shape(ctypes.byref(threads), ctypes.byref(slots))
-    if (threads.value, slots.value) != (THREADS, SLOTS):
+    lib.match_projected_shape.argtypes = [ctypes.POINTER(i)] * 3
+    threads, slots, per_query = i(), i(), i()
+    lib.match_projected_shape(ctypes.byref(threads), ctypes.byref(slots), ctypes.byref(per_query))
+    if (threads.value, slots.value, per_query.value) != (THREADS, SLOTS, THREADS_PER_QUERY):
         raise RuntimeError("match_projected: the kernel and the wrapper disagree on its shape")
     return lib
 
@@ -144,16 +139,16 @@ def match_projected_cuda(
     rows = best.numel()
     if rows == 0:
         return best, second, idx
-    C, T = match_plan(rows, m)
+    C = match_plan(rows, m)
     with torch.cuda.device(dev):
         rc = _lib().match_projected_launch(
             *(t.data_ptr() for _, t, _, _ in named), best.data_ptr(), second.data_ptr(),
-            idx.data_ptr(), rows, m, C, T,
+            idx.data_ptr(), rows, m, C,
             float(radius) * float(radius), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"match_projected launch failed with CUDA error {rc} "
-                           f"(rows={rows}, M={m}, cluster {C}, {T} threads per query)")
+                           f"(rows={rows}, M={m}, cluster {C})")
     match_projected_cuda.launches += 1
     return best, second, idx
 

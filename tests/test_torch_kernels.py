@@ -12,6 +12,7 @@ distances, the same gate rounding and the same tie order.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -301,11 +302,12 @@ MATCH_PLAN_SHAPES = [(3072, 1024), (4096, 1024), (3072, 3072), (1024, 1024), (20
 
 @pytest.mark.parametrize("rows,M", MATCH_PLAN_SHAPES)
 def test_match_plan_covers_every_reference_once(rows, M):
-    C, T = match_cuda.match_plan(rows, M)
-    assert 1 <= C <= match_cuda.MAX_CLUSTER and T in match_cuda.THREADS_PER_QUERY
+    C = match_cuda.match_plan(rows, M)
+    T = match_cuda.THREADS_PER_QUERY
+    assert C in (1, 2, 4, 8) and C <= match_cuda.MAX_CLUSTER
     assert match_cuda.smem_bytes() <= 48 * 1024            # static: at most 48 KB
     assert 2 * match_cuda.smem_bytes() <= 227 * 1024        # two CTAs per SM
-    slices = match_cuda.ref_slices(M, C, T)
+    slices = match_cuda.ref_slices(M, C)
     seen = np.zeros(M, np.int64)
     end = 0
     for b, e in slices:                    # ascending and contiguous, in merge order
@@ -319,10 +321,12 @@ def test_match_plan_covers_every_reference_once(rows, M):
     assert all(e - b <= -(-match_cuda.SLOTS // T) for b, e in slices)
     clusters = -(-rows // (match_cuda.THREADS // T))
     assert C == 1 or clusters <= match_cuda.RESIDENT[C]      # one wave
-    # the live shapes spread over the card in one wave: 192 CTAs in
-    # clusters of 8; the fuse scan's 32 clusters in clusters of 4
-    expect = {(3072, 1024): (8, 4), (3072, 3072): (8, 4), (4096, 1024): (4, 4)}
-    assert (C, T) == expect.get((rows, M), (C, T))
+    # the path shapes in one wave: 8-24 clusters of 8 (64-192 CTAs); the
+    # fuse scan's 32 clusters in clusters of 4
+    expect = {(1024, 1024): 8, (2048, 1024): 8, (3072, 1024): 8, (3072, 3072): 8,
+              (4096, 1024): 4}
+    assert C == expect.get((rows, M), C)
+    assert M >= C * T * match_cuda.MIN_REFS or C == 1       # no thread short of work
     if M >= 12000:
         assert tiles > C                   # some CTA walks its share in several tiles
 
@@ -386,11 +390,11 @@ def test_match_merge_rule_equals_full_plain(L, N, M, radius, variant):
     plain version on all of them: ties, all-gated rows and empty slices."""
     args = _match_variant(match_problem(L, N, M, radius, seed=M + N), variant)
     desc_a, uv_a, va, desc_b, uv_b, vb = args
-    C, T = match_cuda.match_plan(L * N, M)
+    C = match_cuda.match_plan(L * N, M)
     inf = torch.full((L, N), float("inf"))
     acc = (inf, inf, torch.zeros((L, N), dtype=torch.int64))
     n_empty = 0
-    for b, e in match_cuda.ref_slices(M, C, T):
+    for b, e in match_cuda.ref_slices(M, C):
         if b == e:
             part = inf, inf, torch.zeros_like(acc[2])
             n_empty += 1
@@ -434,18 +438,26 @@ def test_match_kernel_edge_cases_equal_plain_version(cuda_device, case):
 @pytest.mark.gpu
 def test_match_kernel_one_device_kernel_and_repeats(cuda_device):
     """One device kernel per call and nothing else on the stream; two
-    launches agree in every bit."""
-    from torch.profiler import ProfilerActivity, profile
+    launches agree in every bit.  The profiler's warm-up step takes one
+    untimed call, as chip_smoke.py's phase 5 does."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     args = match_problem(1, 3072, 1024, 12.0, seed=11, device=cuda_device)
     first = match_projected_cuda(*args, radius=12.0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        again = match_projected_cuda(*args, radius=12.0)
-        torch.cuda.synchronize()
+    before = match_projected_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            again = match_projected_cuda(*args, radius=12.0)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+            prof.step()
     kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
     assert len(kernels) == 1 and "match_projected_kernel" in kernels[0], kernels
+    assert match_projected_cuda.launches == before + 2
     for x, y in zip(first, again):
         assert torch.equal(x, y)
 

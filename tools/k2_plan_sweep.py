@@ -4,9 +4,9 @@ plans than ``match_cuda.match_plan`` picks.
 
     python3 tools/k2_plan_sweep.py
 
-For each of chip_smoke.py's three K2 shapes (same seeded inputs) and each
-candidate (C CTAs per cluster, T threads per query), the profiler's device
-time per call; every plan's outputs must equal the plain version's exactly.
+For each of chip_smoke.py's K2 shapes (same seeded inputs) and each
+cluster size C (CTAs per cluster), the profiler's device time per call;
+every plan's outputs must equal the plain version's exactly.
 Needs one CUDA device; prints one line per plan.
 """
 
@@ -20,7 +20,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-PLANS = [(C, T) for C in (1, 2, 4, 8) for T in (4, 8, 16, 32)]
+PLANS = (1, 2, 4, 8)
 
 
 def main() -> int:
@@ -44,16 +44,16 @@ def main() -> int:
         args = [a.to(dev) for a in cs.make_match_problem(rng, L, N, M, radius)]
         plain = matching.match_projected_plain(*args, radius=radius)
         pick = chosen(L * N, M)
-        for C, T in PLANS:
-            match_cuda.match_plan = lambda rows, m, C=C, T=T: (C, T)
+        for C in PLANS:
+            match_cuda.match_plan = lambda rows, m, C=C: C
             try:
                 run = lambda: match_cuda.match_projected_cuda(*args, radius=radius)
                 same = all(torch.equal(x, y) for x, y in zip(run(), plain))
                 _, us = cs.device_kernels(run)
             finally:
                 match_cuda.match_plan = chosen
-            ctas = -(-L * N // (match_cuda.THREADS // T)) * C
-            print(f"[sweep] {name}: C={C} T={T} ({ctas} CTAs){' [plan]' if (C, T) == pick else ''}"
+            ctas = -(-L * N // (match_cuda.THREADS // match_cuda.THREADS_PER_QUERY)) * C
+            print(f"[sweep] {name}: C={C} ({ctas} CTAs){' [plan]' if C == pick else ''}"
                   f": {us / 1e3:.4f} ms device, equal to plain: {same}", flush=True)
             if not same:
                 return 1
