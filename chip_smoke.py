@@ -34,28 +34,50 @@ Phases, in order; any failure exits non-zero before the result lines:
      profiler's device time by kernel, the empty kernel on the same grid
      (the floor of one launch) and the bound from the gated pairs;
      ``--k2-only`` runs phases 1, 2 and 5 alone;
-  6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG (trailing-window
-     BA every frame, joint ego+object window BA at keyframe cadence,
-     keyframes every 5 frames, fused TrackLocalMap, fusion and culling,
-     keyframe culling and relocalization on; loop closing off) on the same
-     junction frames, synchronous and then pipelined with the async
-     keyframe cadence, after one uncounted warm-up run: ms per frame (host
-     clock and CUDA events around the loop), stage means, peak memory, mean
-     camera t-RPE, ATE, refined object t-RPE, keyframes, fused / culled
-     points, local-map and window refinements dispatched and accepted,
-     joint window refines, K1 and K2 launches (K2 must equal the local-map
-     refinements plus the fuse scans, and be > 0; a window refinement per
-     frame from the first full window, at least one accepted; at least one
-     joint refine in sync); then the synchronous run once more with the
-     plain matcher, whose trajectory must agree with the kernel run to
-     1e-4, and once with both windows off;
+  6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG with its default
+     arguments (trailing-window BA every frame, joint ego+object window BA
+     at keyframe cadence, keyframes every 5 frames, fused TrackLocalMap,
+     fusion and culling, keyframe culling, relocalization and loop closing
+     on) on the same junction frames, synchronous and then pipelined with
+     the async keyframe cadence, after one uncounted warm-up run: ms per
+     frame (host clock and CUDA events around the loop), stage means (the
+     loop ladder's among them), peak memory, mean camera t-RPE, ATE, refined
+     object t-RPE, keyframes, fused / culled points, local-map and window
+     refinements dispatched and accepted, joint window refines, K1 and K2
+     launches (K2 must equal the local-map refinements plus the fuse scans,
+     and be > 0; a window refinement per frame from the first full window,
+     at least one accepted; at least one joint refine in sync; no loop
+     event: the junction never revisits); then the synchronous run once
+     more with the plain matcher, whose trajectory must agree with the
+     kernel run to 1e-4, and once with both windows off;
   7. the window solvers: ``refine_trailing_window`` and
      ``refine_joint_window`` on frames 0-4 with the synchronous run's poses
      and object measurements, on the card and on the CPU (poses and
      motions within 1e-3, live tracks within 2), ms per call of both; then
      ``build_window_tracks`` on frames 0-4 through K2 and through the plain
-     matcher (identical tracks, 4 K2 launches).
-Then one JSON line of kernel figures (K1's launches from the synchronous
+     matcher (identical tracks, 4 K2 launches);
+  8. the live loop ladder: a shuttle at the KITTI camera with
+     ``default_movers()`` (forward 0.3 m per frame over SHUTTLE_N positions,
+     then back over the same path) through ``MultiMotSystem`` at
+     DEFAULT_CONFIG with ``keyframe_gap=2`` and ``loop_consistency=1``:
+     synchronous, pipelined, then synchronous with loop closing off, on the
+     same uploaded frames; per run ms per frame (host clock and CUDA
+     events), the ladder's stage mean, the loop events (frame, keyframe
+     frame, Sim3 inliers), each global BA's verdict and stats, ATE and
+     refined t-RPE, K1 and K2 launches and peak memory.  The synchronous
+     run must close a loop (frame - keyframe frame >= 4, >= 20 inliers);
+     every output finite, accuracy inside phase 6's bounds, K2 launches ==
+     local-map refinements + fuse scans;
+  8b. the ladder's solvers at full size, card against CPU on seeded
+     problems: ``ransac_sim3`` (N = 1024, 300 hypotheses from one fixed
+     index array), ``optimize_pose_graph`` (M = 256, the dense / CG switch),
+     ``optimize_pose_graph_cg`` (M = 1000; its agreement checked in float64,
+     as float32 CG there sits at its own rounding floor) and
+     ``solve_global_ba`` (K = 24, 2048 landmark rows, O = 6, 25 iterations);
+     rotations and scale within 1e-3, translations and landmarks within
+     1e-3 of the problem's extent, Sim3 inliers within 2; ms per call on
+     each device (float32).
+Then the loop figures' JSON line, one JSON line of kernel figures (K1's launches from the synchronous
 live run), the nvidia-smi line, and the final ``{"ok": true, "device": ...}``
 line.  Imports nothing of JAX.
 """
@@ -548,8 +570,7 @@ def k2_bound_us(args, outs, radius):
 def live_config(windows: bool = True):
     """The live system at DEFAULT_CONFIG (trailing-window BA over 5 frames,
     joint ego+object window BA at keyframe cadence); ``windows=False`` turns
-    both off, the configuration of the earlier live figures.  Loop closing
-    is off at construction."""
+    both off, the configuration of the earlier live figures."""
     import dataclasses
 
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG as D
@@ -566,7 +587,7 @@ def run_live(dev, frames, cfg, **kw):
 
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
 
-    s = MultiMotSystem(cfg, seed=0, enable_loop_closing=False, device=dev, **kw)
+    s = MultiMotSystem(cfg, seed=0, device=dev, **kw)
     ups = [s.upload(fd) for fd in frames]          # uploads are set-up, not the loop
     torch.cuda.synchronize(dev)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -620,7 +641,13 @@ def phase_live(dev, frames):
             f"{s.win_accepted_frames}); joint window refines {s.n_joint_refines}")
         log(f"[live {mode}] launches: K1 {k1}, K2 {k2} "
             f"(expect {s.n_lm_dispatched} + {kf.n_fuse_scans})")
+        log(f"[live {mode}] loop events {s.map.loop_events}; loop_ladder stage mean "
+            f"{stages.get('loop_ladder', {}).get('mean_ms')} ms "
+            f"({stages.get('loop_ladder', {}).get('n', 0)} calls)")
         log(f"[live {mode}] stages: {json.dumps(stages)}")
+        if s.map.loop_events:
+            raise SystemExit(f"live {mode}: loop events {s.map.loop_events} on a scene that "
+                             "never revisits")
         if len(res) != n - 1 or len(s.map.camera_poses) != n:
             raise SystemExit(f"live {mode}: {len(res)} results for {n - 1} pairs")
         if not np.all(np.isfinite(np.stack(s.map.camera_poses))) or not finite_tree(res[-1]):
@@ -756,6 +783,297 @@ def phase_window(dev, frames, s):
         raise SystemExit("window tracks: K2 and the plain matcher disagree")
 
 
+SHUTTLE_N = 8               # forward positions of the loop scene: 2 * 8 - 1 = 15 frames
+LOOP_KW = dict(keyframe_gap=2, loop_consistency=1)   # the scene's cuts from the defaults
+
+
+def shuttle_frames(n: int = SHUTTLE_N, step: float = 0.3):
+    """The loop scene: the camera drives forward ``step`` m per frame over
+    ``n`` positions and back over the same path (order [0..n-1] +
+    [n-2..0], the order ``io/synth.build`` plays a sequence in), at the
+    KITTI camera (1242x375) with ``default_movers()``; 2n - 1 frames."""
+    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM, _build_frames, default_movers
+
+    order = list(range(n)) + list(range(n - 2, -1, -1))
+
+    def Twc_at(t):
+        T = np.eye(4)
+        T[2, 3] = step * order[t]
+        return T
+
+    return _build_frames(dict(KITTI_SYNTH_CAM), Twc_at, default_movers(), len(order), box=False)
+
+
+def phase_loop(dev, frames):
+    """The live loop ladder on the shuttle: sync, pipelined, then sync with
+    loop closing off, on the same uploaded frames."""
+    import torch
+
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    n = len(frames)
+    cfg = live_config()
+    figures = {}
+    for mode, kw in (("sync", {}), ("pipelined", dict(pipelined=True)),
+                     ("sync, loop closing off", dict(enable_loop_closing=False))):
+        solve_flow_ba_cuda.launches = 0
+        match_projected_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        s, res, host_s, ev_ms = run_live(dev, frames, cfg, **LOOP_KW, **kw)
+        k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        kf = s.keyframes
+        summ = s.summary()
+        stages = s.stage_report()
+        ladder = stages.get("loop_ladder", {})
+        events = [tuple(int(v) for v in e) for e in s.map.loop_events]
+        log(f"[loop {mode}] {n} frames: {1e3 * host_s / n:.2f} ms/frame (host clock), "
+            f"{ev_ms / n:.2f} ms/frame (CUDA events), peak {peak / 2**30:.3f} GiB; "
+            f"loop_ladder stage mean {ladder.get('mean_ms')} ms ({ladder.get('n', 0)} calls), "
+            f"kf_consume mean {stages.get('kf_consume', {}).get('mean_ms')} ms")
+        log(f"[loop {mode}] loop events (frame, keyframe frame, Sim3 inliers) {events}; "
+            f"global BA per closure (None = rejected): {s.gba_stats}")
+        log(f"[loop {mode}] ATE {summ['ego_ate_rmse_m']:.5f} m (raw "
+            f"{summ['ego_ate_rmse_raw_m']:.5f} m), refined cam t-RPE "
+            f"{summ['cam_t_rpe_refined_mean']:.5f}, mean cam t-RPE "
+            f"{summ['cam_t_rpe_rel_mean']:.5f}; keyframes {[k.index for k in kf.frames]}; "
+            f"K1 {k1}, K2 {k2} (expect {s.n_lm_dispatched} + {kf.n_fuse_scans}); state {s.state}")
+        log(f"[loop {mode}] within the ladder: Sim3 and pose graph "
+            f"{stages.get('loop_sim3_pose_graph')}, global BA {stages.get('loop_global_ba')}")
+        log(f"[loop {mode}] stages: {json.dumps(stages)}")
+        if len(res) != n - 1 or len(s.map.camera_poses) != n:
+            raise SystemExit(f"loop {mode}: {len(res)} results for {n - 1} pairs")
+        if not np.all(np.isfinite(np.stack(s.map.camera_poses))) or not finite_tree(res[-1]):
+            raise SystemExit(f"loop {mode}: non-finite output")
+        if not (k2 == s.n_lm_dispatched + kf.n_fuse_scans and k2 > 0 and k1 > 0):
+            raise SystemExit(f"loop {mode}: K2 launched {k2} times for {s.n_lm_dispatched} "
+                             f"refinements + {kf.n_fuse_scans} fuse scans")
+        if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
+            raise SystemExit(f"loop {mode}: tracking accuracy out of bounds")
+        if mode == "sync" and not any(f - k >= 4 and m >= 20 for f, k, m in events):
+            raise SystemExit(f"loop sync: no loop closed on the revisit ({events})")
+        if "off" in mode and events:
+            raise SystemExit(f"loop closing off, yet loop events {events}")
+        figures[mode] = dict(ms_per_frame=1e3 * host_s / n, events_ms_per_frame=ev_ms / n,
+                             loop_ladder_ms=ladder.get("mean_ms"), loop_events=events,
+                             global_ba=s.gba_stats, ate_m=summ["ego_ate_rmse_m"],
+                             t_rpe_refined=summ["cam_t_rpe_refined_mean"], k1_launches=k1,
+                             k2_launches=k2, peak_gib=peak / 2**30)
+    return figures
+
+
+class FixedSampler:
+    """A hypothesis sampler returning one fixed (iters, k) index array, so
+    that the card and the CPU score the same hypotheses."""
+
+    def __init__(self, idx: np.ndarray):
+        self.idx = idx
+
+    def __call__(self, p, iters, sites, k=3):
+        import torch
+
+        idx = torch.from_numpy(self.idx).to(p.device)
+        return idx[None].expand(p.shape[0], -1, -1)
+
+
+def se3_exp(xi) -> np.ndarray:
+    """(4, 4) float64 exp of a 6-vector (omega, upsilon)."""
+    import torch
+
+    from multimot_track_tpu_torch.geometry import se3
+
+    return se3.exp_se3(torch.tensor(xi, dtype=torch.float64)).numpy()
+
+
+def drift_chain(M, rel_xi, drift_xi, w_loop):
+    """A drifted odometry chain of M poses with the true loop edge from the
+    last pose to the first (the fixture of tests/test_loop_closing.py).
+    Returns numpy (poses, edges, Z, weights)."""
+    true_rel, drift = se3_exp(rel_xi), se3_exp(drift_xi)
+    poses, true_poses = [np.eye(4)], [np.eye(4)]
+    for _ in range(1, M):
+        poses.append(drift @ true_rel @ poses[-1])
+        true_poses.append(true_rel @ true_poses[-1])
+    poses = np.stack(poses).astype(np.float32)
+    ij = np.stack([np.arange(1, M), np.arange(M - 1)], -1)
+    Z = np.einsum("eij,ejk->eik", poses[1:], np.linalg.inv(poses[:-1]))
+    ij = np.concatenate([ij, [[M - 1, 0]]]).astype(np.int32)
+    Z = np.concatenate([Z, (true_poses[-1] @ np.linalg.inv(true_poses[0]))[None]])
+    w = np.concatenate([np.ones(M - 1), [w_loop]])
+    return poses, ij, Z.astype(np.float32), w.astype(np.float32)
+
+
+def gba_problem(rng, K=24, L_rows=2048, O=6):
+    """A seeded global BA at the KITTI camera: K keyframes 0.6 m apart with
+    drift growing to ~2 cm, each landmark seen by a run of up to O
+    consecutive keyframes among those that see it (a chain of consecutive
+    matches, as the store builds them; 0.5 px and 2 % disparity noise),
+    inits 0.1 m off, padded to ``L_rows`` rows.  Returns
+    (args for solve_global_ba without the intrinsics, intrinsics)."""
+    from multimot_track_tpu_torch.config import CameraConfig
+
+    c = CameraConfig()
+    step = se3_exp([0.0, 0.01, 0.0, 0.05, 0.0, 0.6])
+    T_true = [np.eye(4)]
+    for _ in range(K - 1):
+        T_true.append(step @ T_true[-1])
+    T_stored = np.stack([se3_exp(0.02 * k / K * rng.normal(size=6)) @ T
+                         for k, T in enumerate(T_true)])
+    n_cand = 4 * L_rows
+    X = np.stack([rng.uniform(-12, 12, n_cand), rng.uniform(-3, 1.5, n_cand),
+                  rng.uniform(8, 40, n_cand)], -1)
+    obs_kf = np.zeros((L_rows, O), np.int32)
+    obs_uv = np.zeros((L_rows, O, 2), np.float32)
+    obs_disp = np.full((L_rows, O), c.bf / 20.0, np.float32)
+    obs_w = np.zeros((L_rows, O), np.float32)
+    X0 = np.zeros((L_rows, 3), np.float32)
+    X0[:, 2] = 20.0
+    l = 0
+    for x in X:
+        Xc = np.einsum("kij,j->ki", np.stack(T_true)[:, :3, :3], x) + np.stack(T_true)[:, :3, 3]
+        u = c.fx * Xc[:, 0] / Xc[:, 2] + c.cx
+        v = c.fy * Xc[:, 1] / Xc[:, 2] + c.cy
+        seen = np.nonzero((Xc[:, 2] > 1.0) & (u > 0) & (u < c.width) & (v > 0)
+                          & (v < c.height))[0]
+        if len(seen) < 2:
+            continue
+        start = rng.integers(0, max(len(seen) - O, 0) + 1)
+        seen = seen[start:start + O]
+        for o, k in enumerate(seen):
+            obs_kf[l, o] = k
+            obs_uv[l, o] = (u[k], v[k]) + rng.normal(0, 0.5, 2)
+            obs_disp[l, o] = c.bf / Xc[k, 2] * (1.0 + rng.normal(0, 0.02))
+            obs_w[l, o] = 1.0
+        X0[l] = x + rng.normal(0, 0.1, 3)
+        l += 1
+        if l == L_rows - 48:        # the rest stays padding, as the store pads
+            break
+    arrays = (T_stored.astype(np.float32), X0, obs_kf, obs_uv, obs_disp, obs_w)
+    return arrays, (c.fx, c.fy, c.cx, c.cy, c.bf), l
+
+
+def agreement(a, b, extent):
+    """(rotation / scale max |d|, translation max |d| over ``extent``) of two
+    pose stacks (..., 4, 4)."""
+    return (float(np.abs(a[..., :3, :3] - b[..., :3, :3]).max()),
+            float(np.abs(a[..., :3, 3] - b[..., :3, 3]).max()) / max(1.0, extent))
+
+
+def phase_loop_solvers(dev):
+    """The loop ladder's solvers at full size, card against CPU."""
+    import torch
+
+    from multimot_track_tpu_torch.config import CameraConfig
+    from multimot_track_tpu_torch.solvers import global_ba, pose_graph, sim3
+
+    cpu = torch.device("cpu")
+    c = CameraConfig()
+    rng = np.random.default_rng(8)
+    figures = {}
+
+    def both(fn, reps_cuda, warm=True):
+        """{"cuda" | "cpu": (fn's result, wall ms per call)}: on the card the
+        mean of ``reps_cuda`` calls, after an untimed one when ``warm``, on
+        the CPU one call."""
+        if warm:
+            fn(dev)
+        out = {}
+        for where, d, reps in (("cuda", dev, reps_cuda), ("cpu", cpu, 1)):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                res = fn(d)
+            torch.cuda.synchronize(dev)
+            out[where] = (res, 1e3 * (time.perf_counter() - t0) / reps)
+        return out
+
+    # --- Sim3 RANSAC: a keyframe's 1024 points, 300 hypotheses ---
+    N = 1024
+    uv = np.stack([rng.uniform(50, 1190, N), rng.uniform(30, 345, N)], -1)
+    z = rng.uniform(4.0, 35.0, N)
+    X1 = np.stack([(uv[:, 0] - c.cx) * z / c.fx, (uv[:, 1] - c.cy) * z / c.fy, z], -1)
+    T12 = se3_exp([0.01, -0.03, 0.005, 0.3, -0.05, 0.4])
+    X2 = X1 @ T12[:3, :3].T + T12[:3, 3] + rng.normal(0, 0.01, X1.shape)
+    X2[: N // 4] += rng.normal(0, 1.0, (N // 4, 3))
+    valid = rng.uniform(size=N) < 0.9
+    sampler = FixedSampler(rng.choice(np.nonzero(valid)[0], (300, 3)).astype(np.int64))
+    t = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+    r = both(lambda d: sim3.ransac_sim3(
+        t(X1.astype(np.float32), d), t(X2.astype(np.float32), d), t(valid, d),
+        c.fx, c.fy, c.cx, c.cy, sampler=sampler, site=(0, "sim3")), reps_cuda=10)
+    (rk, ms_k), (rc, ms_c) = r["cuda"], r["cpu"]
+    d_rot = float((rk.R.cpu() - rc.R).abs().max())
+    d_tr = float((rk.t.cpu() - rc.t).abs().max()) / float(np.abs(X2).max())
+    d_inl = abs(int(rk.n_inliers) - int(rc.n_inliers))
+    d_s = abs(float(rk.scale) - float(rc.scale))
+    log(f"[loop solvers] ransac_sim3 N = {N}, 300 hypotheses: inliers cuda "
+        f"{int(rk.n_inliers)} cpu {int(rc.n_inliers)} (tol 2), max|dR| {d_rot:.3e}, "
+        f"max|dt| / extent {d_tr:.3e}, |ds| {d_s:.3e} (tol 1e-3) | cuda {ms_k:.3f} ms/call, "
+        f"cpu {ms_c:.3f} ms/call")
+    ok = d_inl <= 2 and max(d_rot, d_tr, d_s) <= 1e-3
+    figures["ransac_sim3"] = dict(cuda_ms=ms_k, cpu_ms=ms_c, max_err=max(d_rot, d_tr, d_s))
+
+    # --- pose graphs: dense at the switch, CG at the JAX test's size.  The
+    # float32 CG at M = 1000 sits at its own rounding floor (card and CPU
+    # land ~1e-3 of the chain's extent apart, each ~4e-4 from float64), so
+    # its card / CPU agreement is checked in float64 and its float32
+    # figures are printed beside ---
+    for name, solve, M, rel, check in (
+            ("optimize_pose_graph", pose_graph.optimize_pose_graph, 256,
+             [0, 0.01, 0, 0, 0, 0.5], np.float32),
+            ("optimize_pose_graph_cg", pose_graph.optimize_pose_graph_cg, 1000,
+             [0, 0.003, 0, 0, 0, 1.0], np.float64)):
+        g = drift_chain(M, rel, [0, 0.0005, 0, 0.002, 0, 0.004], 100.0)
+        # the CG (tens of seconds a call, its ops warmed by the dense solve)
+        # runs without the untimed call
+        run = lambda dtype: both(lambda d: solve(*(t(a.astype(dtype) if a.dtype.kind == "f"
+                                                      else a, d) for a in g)
+                                                ).poses.cpu().numpy(), reps_cuda=1,
+                                 warm=check is np.float32)
+        r = run(np.float32)
+        (Pk, ms_k), (Pc, ms_c) = r["cuda"], r["cpu"]
+        extent = float(np.abs(Pc[:, :3, 3]).max())
+        d32 = agreement(Pk, Pc, extent)
+        if check is np.float64:
+            r64 = run(np.float64)
+            d_rot, d_tr = agreement(r64["cuda"][0], r64["cpu"][0], extent)
+            f32_off = agreement(Pk, r64["cpu"][0], extent)
+            detail = (f"float64 card / CPU max|dR| {d_rot:.3e}, max|dt| / extent {d_tr:.3e} "
+                      f"(tol 1e-3); float32 card / CPU {d32[0]:.3e}, {d32[1]:.3e}, float32 "
+                      f"card / float64 {f32_off[0]:.3e}, {f32_off[1]:.3e}")
+        else:
+            d_rot, d_tr = d32
+            detail = f"max|dR| {d_rot:.3e}, max|dt| / extent {d_tr:.3e} (tol 1e-3)"
+        log(f"[loop solvers] {name} M = {M} (extent {extent:.1f} m): {detail}, finite "
+            f"{bool(np.isfinite(Pk).all())} | float32 cuda {ms_k:.2f} ms/call, cpu "
+            f"{ms_c:.2f} ms/call")
+        ok = ok and np.isfinite(Pk).all() and max(d_rot, d_tr) <= 1e-3
+        figures[name] = dict(cuda_ms=ms_k, cpu_ms=ms_c, max_err=max(d_rot, d_tr),
+                             float32_err=max(d32))
+
+    # --- global BA: 24 keyframes, 2048 landmark rows, O = 6 ---
+    arrays, intr, L = gba_problem(rng)
+    r = both(lambda d: global_ba.solve_global_ba(
+        *(t(a, d) for a in arrays), *intr), reps_cuda=2)
+    (gk, ms_k), (gc, ms_c) = r["cuda"], r["cpu"]
+    Pk, Pc = gk.poses.cpu().numpy(), gc.poses.cpu().numpy()
+    Xk, Xc = gk.X.cpu().numpy(), gc.X.cpu().numpy()
+    extent = float(np.abs(Xc[:L]).max())
+    d_rot, d_tr = agreement(Pk, Pc, extent)
+    d_X = float(np.abs(Xk - Xc).max()) / extent
+    log(f"[loop solvers] solve_global_ba K = 24, L = {L} landmarks in {len(Xc)} rows, O = 6: "
+        f"chi2 {float(gc.chi2_init):.1f} -> cuda {float(gk.chi2):.3f} cpu {float(gc.chi2):.3f}; "
+        f"max|dR| {d_rot:.3e}, max|dt| / extent ({extent:.1f} m) {d_tr:.3e}, max|dX| / extent "
+        f"{d_X:.3e} (tol 1e-3) | cuda {ms_k:.2f} ms/call, cpu {ms_c:.2f} ms/call")
+    ok = ok and np.isfinite(Pk).all() and np.isfinite(Xk).all() and max(d_rot, d_tr, d_X) <= 1e-3
+    figures["solve_global_ba"] = dict(cuda_ms=ms_k, cpu_ms=ms_c, max_err=max(d_rot, d_tr, d_X))
+    if not ok:
+        raise SystemExit("loop solvers: the card and the CPU disagree")
+    return figures
+
+
+
 def main(argv) -> int:
     import torch
 
@@ -796,6 +1114,12 @@ def main(argv) -> int:
     k2 = phase_match_kernel(dev)
     live = phase_live(dev, frames)
     phase_window(dev, frames, live["system"])
+    t0 = time.perf_counter()
+    shuttle = shuttle_frames()
+    log(f"[scene] rendered the {len(shuttle)}-frame shuttle in {time.perf_counter() - t0:.1f} s")
+    loop = phase_loop(dev, shuttle)
+    loop_solvers = phase_loop_solvers(dev)
+    log(json.dumps({"loop": loop, "loop_solvers": loop_solvers}))
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{

@@ -1,17 +1,20 @@
-"""Keyframe store, TrackLocalMap, map-point fusion and relocalization.
+"""Keyframe store, TrackLocalMap, map-point fusion, relocalization and
+loop closing.
 
-Port of the live-path parts of ``multimot_track_tpu.pipeline.keyframes``: a
-fixed-capacity host list of keyframe arrays whose descriptors, world points
-and flags are cached once on the device; the local-map pose refinement
+Port of ``multimot_track_tpu.pipeline.keyframes``: a fixed-capacity host
+list of keyframe arrays whose descriptors, world points and flags are
+cached once on the device; the local-map pose refinement
 (projection-guided matching through kernel K2, then stereo Gauss-Newton
 with inlier re-classification); the duplicate-landmark fuse scan of the
 newest keyframe against the previous L in one K2 launch (the JAX ``vmap``
 over L is K2's batch axis); keyframe redundancy culling; place-recognition
-scores; and relocalization by RANSAC PnP.
+scores; relocalization by RANSAC PnP; and the loop ladder: Sim3 RANSAC and
+a pose-graph correction (``close_loop``), then the global bundle adjustment
+over the keyframe graph (``global_ba``), plus two-view point creation
+(``triangulate_between``).
 
 Not ported yet: the BoW retrieval above ``bow_threshold`` keyframes
-(ROADMAP item 18), ``triangulate_between``, ``close_loop`` and
-``global_ba`` (ROADMAP items 13 and 15).
+(ROADMAP item 16).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ import torch
 from multimot_track_tpu_torch.geometry import camera as cam_g
 from multimot_track_tpu_torch.geometry import se3
 from multimot_track_tpu_torch.ops import matching
-from multimot_track_tpu_torch.solvers import pnp
+from multimot_track_tpu_torch.solvers import pnp, pose_graph, sim3
+from multimot_track_tpu_torch.solvers.global_ba import GlobalBAParams, solve_global_ba
+from multimot_track_tpu_torch.solvers.initializer import triangulate
 from multimot_track_tpu_torch.solvers.ransac import (
     HypothesisSampler, _count_inliers, _gn_refine_stereo,
 )
@@ -185,16 +190,21 @@ def _cam_z(kf: Keyframe) -> np.ndarray:
 class KeyframeStore:
     """Host list of keyframes with a device cache of their payloads.
 
-    ``device`` holds the cached descriptors, points and flags;
-    ``match_backend`` ("auto" | "cuda" | "torch") routes the projected
-    matching of TrackLocalMap and the fuse scan."""
+    ``device`` holds the cached descriptors, points and flags and runs the
+    store's solves (the card by default; without one the constructor
+    raises, and ``device="cpu"`` runs on the CPU); ``match_backend``
+    ("auto" | "cuda" | "torch") routes the projected matching of
+    TrackLocalMap and the fuse scan."""
 
     def __init__(self, capacity: int = 64, min_gap: int = 5, bow_threshold: int = 48,
-                 device="cpu", match_backend: str = "auto"):
+                 device="cuda", match_backend: str = "auto"):
         self.capacity = capacity
         self.min_gap = min_gap
         self.frames: List[Keyframe] = []
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("KeyframeStore runs on the card by default and found no "
+                               "CUDA device; pass device='cpu' to run on the CPU")
         self.match_backend = match_backend
         self._version = 0            # bumped on any mutation; keys the local map
         self._struct_version = 0     # bumped when membership changes; keys the stack
@@ -326,7 +336,7 @@ class KeyframeStore:
         if len(self.frames) > self.bow_threshold:
             raise NotImplementedError(
                 f"place recognition over more than {self.bow_threshold} keyframes needs "
-                "the BoW retrieval of ops/bow, which is not ported yet (ROADMAP item 18)")
+                "the BoW retrieval of ops/bow, which is not ported yet (ROADMAP item 16)")
         stacked = self._stacked_descriptors()
         if stacked is None:   # mixed keypoint counts: one keyframe at a time
             return np.asarray([self._pair_count(desc, valid, kf) for kf in self.frames[:K]],
@@ -484,3 +494,240 @@ class KeyframeStore:
                 if int(sol.n_inliers) >= min_inliers:
                     return sol.T.cpu().numpy()
         return None
+
+    # ------------------------------------------------------------------
+    def triangulate_between(self, i: int, j: int, fx, fy, cx, cy,
+                            max_reproj_px: float = 2.0):
+        """New world points from descriptor matches between keyframes i and
+        j (DLT), gated on cheirality in both views and on the reprojection
+        into i.  Returns (Xw (N, 3), valid (N,)) aligned with i's keypoints."""
+        a, b = self.frames[i], self.frames[j]
+        res = matching.match_descriptors(self._dev(a.desc), self._dev(b.desc),
+                                         self._dev(a.valid), self._dev(b.valid))
+        Kmat = np.asarray([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+        uv_b = b.uv[res.idx.cpu().numpy()].astype(np.float32)
+        X = triangulate(self._t(Kmat @ a.Tcw[:3]), self._t(Kmat @ b.Tcw[:3]),
+                        self._t(a.uv), self._t(uv_b)).cpu().numpy()
+        Xc1 = (a.Tcw[:3, :3] @ X.T).T + a.Tcw[:3, 3]
+        Xc2 = (b.Tcw[:3, :3] @ X.T).T + b.Tcw[:3, 3]
+        uv1_hat = cam_g.project(torch.from_numpy(Xc1), fx, fy, cx, cy).numpy()
+        err = np.linalg.norm(uv1_hat - a.uv, axis=-1)
+        ok = (res.valid.cpu().numpy() & (Xc1[:, 2] > 0) & (Xc2[:, 2] > 0)
+              & np.isfinite(X).all(1) & (err < max_reproj_px))
+        return X.astype(np.float32), ok
+
+    # ------------------------------------------------------------------
+    def close_loop(self, sampler: HypothesisSampler, site: tuple, cur: Keyframe,
+                   cand_idx: int,
+                   trajectory: np.ndarray,     # (M, 4, 4) Tcw of every frame so far
+                   kf_to_traj: List[int],      # trajectory row of each stored keyframe
+                   fx, fy, cx, cy, fix_scale: bool = True,
+                   info: Optional[dict] = None,
+                   max_corr_frac: float = 0.2) -> Tuple[np.ndarray, int]:
+        """Sim3-verify the loop between ``cur`` and stored keyframe
+        ``cand_idx`` (RANSAC over camera-frame points of the descriptor
+        matches, hypotheses from ``sampler`` at ``site``) and correct the
+        trajectory with a pose-graph solve: odometry edges plus the loop
+        edge weighted by the inlier count, dense Gauss-Newton up to 256
+        poses and CG above.
+
+        ``fix_scale=False`` (monocular): the Sim3 scale is distributed
+        geometrically over the loop segment's relative translations before
+        the SE(3) solve.  ``info`` receives {"scale", "row_scale" (M,)}, and
+        "rejected_implausible" when the drift gate refuses: a correction
+        beyond max(1 m, ``max_corr_frac`` x the loop's path length).
+
+        Returns (corrected trajectory, n_inliers); n_inliers 0 = rejected."""
+        kf = self.frames[cand_idx]
+        res = matching.match_descriptors(self._dev(cur.desc), self._dev(kf.desc),
+                                         self._dev(cur.valid), self._dev(kf.valid))
+        idx_h = res.idx.cpu().numpy()
+        # camera-frame points on both sides
+        Xc_cur = (cur.Tcw[:3, :3] @ cur.Xw.T).T + cur.Tcw[:3, 3]
+        Xc_kf = ((kf.Tcw[:3, :3] @ kf.Xw.T).T + kf.Tcw[:3, 3])[idx_h]
+        # both endpoints need trustworthy 3-D
+        good = self._t(~kf.bad[idx_h] & ~cur.bad)
+        s3 = sim3.ransac_sim3(self._t(Xc_cur.astype(np.float32)),
+                              self._t(Xc_kf.astype(np.float32)), res.valid & good,
+                              fx, fy, cx, cy, sampler=sampler, site=site,
+                              fix_scale=fix_scale)
+        n = int(s3.n_inliers)
+        if n < 20:
+            return trajectory, 0
+        M = trajectory.shape[0]
+        i_old_row = kf_to_traj[cand_idx]
+        row_scale = np.ones(M, np.float64)
+        s = float(s3.scale) if not fix_scale else 1.0
+        if not fix_scale and np.isfinite(s) and 0.2 < s < 5.0:
+            # distribute the drift: each step after the old keyframe's row
+            # has its relative translation scaled by s^(1/n_steps), so the
+            # cumulative correction at the loop frame is s
+            gamma = s ** (1.0 / max(M - 1 - i_old_row, 1))
+            rels = [trajectory[i] @ np.linalg.inv(trajectory[i - 1]) for i in range(1, M)]
+            trajectory = trajectory.copy()
+            c = 1.0
+            for i in range(1, M):
+                if i > i_old_row:
+                    c *= gamma
+                    rels[i - 1] = rels[i - 1].copy()
+                    rels[i - 1][:3, 3] *= gamma
+                row_scale[i] = c
+                trajectory[i] = (rels[i - 1] @ trajectory[i - 1]).astype(np.float32)
+        if info is not None:
+            info["scale"] = s
+            info["row_scale"] = row_scale
+        # the loop edge: T_rel maps cur-camera to kf-camera points, so the
+        # constraint on T_cur T_old^-1 is T_rel^-1
+        T_rel = torch.eye(4, dtype=torch.float32, device=self.device)
+        T_rel[:3, :3] = s3.R
+        T_rel[:3, 3] = s3.t
+        traj = self._t(trajectory.astype(np.float32))
+        ij_odo, Z_odo = pose_graph.odometry_edges(traj)
+        ij = torch.cat([ij_odo, torch.tensor([[M - 1, i_old_row]], dtype=torch.int32,
+                                             device=self.device)])
+        Z = torch.cat([Z_odo, torch.linalg.inv(T_rel)[None]])
+        w = torch.cat([torch.ones(M - 1, device=self.device),
+                       torch.tensor([float(n)], device=self.device)])
+        # exact dense Gauss-Newton at keyframe scale, matrix-free CG beyond
+        solve = pose_graph.optimize_pose_graph if M <= 256 else pose_graph.optimize_pose_graph_cg
+        corrected = solve(traj, ij, Z, w).poses.cpu().numpy()
+        # drift-plausibility gate: a genuine loop's correction is bounded by
+        # the drift accumulated around it; one comparable to the path length
+        # is a repetitive-texture false positive whose Sim3 verified
+        pos = np.stack([np.linalg.inv(T)[:3, 3] for T in trajectory])
+        path = float(np.sum(np.linalg.norm(np.diff(pos[i_old_row:], axis=0), axis=-1)))
+        corr_mag = float(np.linalg.norm(np.linalg.inv(corrected[-1])[:3, 3] - pos[-1]))
+        if corr_mag > max(1.0, max_corr_frac * path):
+            if info is not None:
+                info["rejected_implausible"] = corr_mag
+            return trajectory, 0
+        return corrected, n
+
+    # ------------------------------------------------------------------
+    def global_ba(self, fx, fy, cx, cy, bf, loop_pair: Optional[Tuple[int, int]] = None,
+                  max_obs: int = 6, iters: int = 25, match_radius_px: float = 20.0,
+                  rel3d: float = 0.05,
+                  max_corr_m: float = 2.0) -> Optional[Tuple[List[np.ndarray], dict]]:
+        """Global bundle adjustment over the keyframe graph, after the
+        pose-graph correction and ``correct_poses``.
+
+        Landmark identity comes from descriptor matches between consecutive
+        keyframes (and the ``loop_pair``) that pass a reprojection and a
+        3-D agreement gate, chained by union-find on the host; chains seen
+        by at least two keyframes become landmarks, padded to a multiple of
+        1024 with at most ``max_obs`` observations each.  Rejected (None,
+        store untouched) with too few keyframes, matches or chains, on a
+        non-finite or worse objective, a pose moved by more than
+        ``max_corr_m``, or adjacent relative poses rewritten (median > 0.1 m
+        or max > 0.5 m).  Otherwise writes the poses back, re-anchors every
+        point with its keyframe, gives chain members their optimised
+        landmark, and returns (new Tcw per keyframe, stats)."""
+        K = len(self.frames)
+        if K < 3:
+            return None
+        pairs = [(i, i + 1) for i in range(K - 1)]
+        if loop_pair is not None and abs(loop_pair[0] - loop_pair[1]) > 1:
+            pairs.append(tuple(loop_pair))
+
+        # --- correspondence graph over (keyframe, point) nodes ---
+        offsets = np.cumsum([0] + [kf.uv.shape[0] for kf in self.frames])
+        parent = np.arange(offsets[-1])
+
+        def find(a):
+            root = a
+            while parent[root] != root:
+                root = parent[root]
+            while parent[a] != root:
+                parent[a], a = root, parent[a]
+            return root
+
+        n_edges = 0
+        for i, j in pairs:
+            a, b = self.frames[i], self.frames[j]
+            res = matching.match_descriptors(self._dev(a.desc), self._dev(b.desc),
+                                             self._t(a.valid & ~a.bad), self._t(b.valid & ~b.bad))
+            idx = res.idx.cpu().numpy()
+            ok = res.valid.cpu().numpy()
+            # geometric gates: a's point reprojected near b's keypoint, and
+            # the two stored world points close (loose: drift remains)
+            Xb = (b.Tcw[:3, :3] @ a.Xw.T).T + b.Tcw[:3, 3]
+            z = np.maximum(Xb[:, 2], 1e-3)
+            u = fx * Xb[:, 0] / z + cx
+            v = fy * Xb[:, 1] / z + cy
+            duv = np.hypot(u - b.uv[idx][:, 0], v - b.uv[idx][:, 1])
+            d3 = np.linalg.norm(a.Xw - b.Xw[idx], axis=-1)
+            ok = (ok & (Xb[:, 2] > 0.5) & (duv < match_radius_px)
+                  & (d3 < np.maximum(rel3d * z, 0.3)))
+            for pt in np.nonzero(ok)[0]:
+                ra, rb = find(offsets[i] + pt), find(offsets[j] + idx[pt])
+                if ra != rb:
+                    parent[rb] = ra
+                    n_edges += 1
+        if n_edges < 50:
+            return None
+
+        # --- chains -> padded observation tables ---
+        groups: dict = {}
+        for k, kf in enumerate(self.frames):
+            for pt in np.nonzero(kf.valid & ~kf.bad)[0]:
+                groups.setdefault(find(offsets[k] + pt), []).append((k, int(pt)))
+        chains = [m for m in groups.values() if len({k for k, _ in m}) >= 2]
+        if len(chains) < 50:
+            return None
+        L = len(chains)
+        L_pad = ((L + 1023) // 1024) * 1024
+        obs_kf = np.zeros((L_pad, max_obs), np.int32)
+        obs_uv = np.zeros((L_pad, max_obs, 2), np.float32)
+        obs_disp = np.full((L_pad, max_obs), bf / 20.0, np.float32)
+        obs_w = np.zeros((L_pad, max_obs), np.float32)
+        X0 = np.zeros((L_pad, 3), np.float32)
+        X0[:, 2] = 20.0
+        for l, members in enumerate(chains):
+            members = members[:max_obs]
+            acc = np.zeros(3)
+            for o, (k, pt) in enumerate(members):
+                kf = self.frames[k]
+                obs_kf[l, o] = k
+                obs_uv[l, o] = kf.uv[pt]
+                zc = ((kf.Tcw[:3, :3] @ kf.Xw[pt]) + kf.Tcw[:3, 3])[2]
+                obs_disp[l, o] = bf / max(zc, 0.5)
+                obs_w[l, o] = 1.0
+                acc += kf.Xw[pt]
+            X0[l] = acc / len(members)
+
+        poses0 = np.stack([kf.Tcw for kf in self.frames]).astype(np.float32)
+        out = solve_global_ba(self._t(poses0), self._t(X0), self._t(obs_kf), self._t(obs_uv),
+                              self._t(obs_disp), self._t(obs_w), fx, fy, cx, cy, bf,
+                              params=GlobalBAParams(iters=iters))
+        T_new, X_opt = out.poses.cpu().numpy(), out.X.cpu().numpy()
+        chi2_init, chi2 = float(out.chi2_init), float(out.chi2)
+        if not np.isfinite(T_new).all() or not np.isfinite(chi2) or chi2 > chi2_init:
+            return None
+        corr = max(float(np.linalg.norm((T_new[k] @ np.linalg.inv(poses0[k]))[:3, 3]))
+                   for k in range(K))
+        if corr > max_corr_m:
+            return None
+        # relative-pose preservation: adjacent odometry is the most reliable
+        # constraint; a solution that rewrites it means the chains were wrong
+        rel_changes = []
+        for k in range(K - 1):
+            rel_old = poses0[k + 1] @ np.linalg.inv(poses0[k])
+            rel_new = T_new[k + 1] @ np.linalg.inv(T_new[k])
+            rel_changes.append(float(np.linalg.norm((rel_new @ np.linalg.inv(rel_old))[:3, 3])))
+        if rel_changes and (np.median(rel_changes) > 0.10 or max(rel_changes) > 0.5):
+            return None
+
+        # --- write back: poses move, unmatched points ride along, chain
+        # members take the jointly optimised landmark ---
+        for k, kf in enumerate(self.frames):
+            Xc = (kf.Tcw[:3, :3] @ kf.Xw.T).T + kf.Tcw[:3, 3]
+            Twc_new = np.linalg.inv(T_new[k])
+            kf.Xw = ((Twc_new[:3, :3] @ Xc.T).T + Twc_new[:3, 3]).astype(np.float32)
+            kf.Tcw = T_new[k].astype(np.float32)
+        for l, members in enumerate(chains):
+            for k, pt in members[:max_obs]:
+                self.frames[k].Xw[pt] = X_opt[l]
+        self._version += 1
+        stats = {"n_landmarks": L, "n_edges": n_edges, "chi2_init": chi2_init, "chi2": chi2,
+                 "max_corr_m": corr}
+        return [kf.Tcw.copy() for kf in self.frames], stats

@@ -2,9 +2,9 @@
 
 Port of ``multimot_track_tpu.pipeline.system`` for the live path with
 keyframes, fused TrackLocalMap, the trailing-window BA, map-point fusion
-and culling, keyframe culling, the joint ego+object window BA and
-relocalization on LOST, in the synchronous and the pipelined
-(one-frame-latency, async keyframe cadence) modes:
+and culling, keyframe culling, the joint ego+object window BA,
+relocalization on LOST and loop closing, in the synchronous and the
+pipelined (one-frame-latency, async keyframe cadence) modes:
 
 * per frame, ``tracker.full_step`` (frontend, pair build, ego and object
   solves) and the frame's FAST + ORB + depth features run on ``device``;
@@ -17,16 +17,20 @@ relocalization on LOST, in the synchronous and the pipelined
 * keyframe upkeep (capture, fuse scan, found-ratio culling, redundancy
   culling, the joint window BA) runs at keyframe cadence, synchronously or
   dispatched one frame ahead of its consumption;
+* after a keyframe is added (or, pipelined, when its cadence is consumed)
+  the loop ladder runs: place recognition, the consistency gate, Sim3
+  RANSAC, the pose-graph correction of the whole trajectory and the global
+  BA over the keyframe graph (``_maybe_close_loop``);
 * the window's wire tensors stay on the device (``_win``), so the window
   refinements re-read the frames without another upload.
 
-Random draws: RANSAC and PnP hypotheses come from a
+Random draws: RANSAC, PnP and Sim3 hypotheses come from a
 ``ransac.HypothesisSampler`` with ``pair_id = frame_idx`` (the JAX package
-folds the frame index into its key), and depth / flow noise from a
-``torch.Generator``.
+folds the frame index into its key; the loop ladder draws at its
+keyframe's frame), and depth / flow noise from a ``torch.Generator``.
 
-Not ported yet, and refused by the constructor rather than skipped: loop
-closing (ROADMAP item 15) and mask-free object discovery (item 18).
+Not ported yet, and refused by the constructor rather than skipped:
+mask-free object discovery (ROADMAP item 21).
 """
 
 from __future__ import annotations
@@ -185,6 +189,11 @@ class MultiMotSystem:
     to the constant-velocity model; a LOST streak longer than
     ``max_lost_frames`` resets the track IDs.
 
+    Loop closing (on by default with keyframes): a candidate must be at
+    least ``loop_min_kf_separation`` keyframes old, score
+    ``loop_min_matches`` descriptor matches, and be named by
+    ``loop_consistency`` of the newest ``loop_consistency + 1`` keyframes.
+
     ``device``: where the per-frame work runs.  ``sampler``: the hypothesis
     sampler (default: multinomial draws from a generator seeded with
     ``seed``).  ``backend``: the flow-BA route (``"auto" | "cuda" |
@@ -198,19 +207,16 @@ class MultiMotSystem:
     def __init__(self, cfg: PipelineConfig = DEFAULT_CONFIG, seed: int = 0,
                  min_inliers: int = 10, max_lost_frames: int = 5,
                  enable_keyframes: bool = True, keyframe_gap: int = 5,
-                 enable_loop_closing: bool = True, discover_objects: bool = False,
-                 pipelined: bool = False,
+                 enable_loop_closing: bool = True, loop_min_matches: int = 40,
+                 loop_min_kf_separation: int = 3, loop_consistency: int = 3,
+                 discover_objects: bool = False, pipelined: bool = False,
                  device="cuda", sampler: Optional[HypothesisSampler] = None,
                  backend: Optional[str] = None, match_backend: str = "auto"):
         be = cfg.backend
-        for asked, what, item in (
-            (enable_loop_closing and enable_keyframes, "enable_loop_closing", 15),
-            (discover_objects, "discover_objects (mask-free object discovery)", 18),
-        ):
-            if asked:
-                raise NotImplementedError(
-                    f"{what} is not ported to multimot_track_tpu_torch yet "
-                    f"(ROADMAP item {item}); turn it off")
+        if discover_objects:
+            raise NotImplementedError(
+                "discover_objects (mask-free object discovery) is not ported to "
+                "multimot_track_tpu_torch yet (ROADMAP item 21); turn it off")
         if pipelined and not be.fused_refine:
             raise ValueError("pipelined mode requires backend.fused_refine")
         self.cfg = cfg
@@ -253,6 +259,11 @@ class MultiMotSystem:
         self._feat_cache = None         # (frame_idx, features): one extraction per frame
         self._dev_images = None         # (frame_idx, gray, depth) device tensors
         self.enable_keyframes = enable_keyframes
+        self.enable_loop_closing = enable_loop_closing and enable_keyframes
+        self.loop_min_matches = loop_min_matches
+        self.loop_min_kf_separation = loop_min_kf_separation
+        self.loop_consistency = loop_consistency
+        self._loop_history: List[Optional[int]] = []   # candidate frame per keyframe
         # counters of the local-map refinement (the store counts its fuse
         # scans and fused / culled points)
         self.n_lm_dispatched = 0        # TrackLocalMap refinements run
@@ -262,6 +273,7 @@ class MultiMotSystem:
         self.n_win_dispatched = 0       # trailing-window refinements run
         self.win_accepted_frames: List[int] = []  # frames whose window was committed
         self.n_joint_refines = 0
+        self.gba_stats: List[Optional[dict]] = []  # per global BA: stats, None if rejected
         self._win: List[dict] = []      # the trailing window's device tensors
         # per-stage wall seconds (a list per stage name)
         self.stage_times: Dict[str, List[float]] = {}
@@ -289,7 +301,10 @@ class MultiMotSystem:
             self.cfg, seed=self.seed, min_inliers=self.min_inliers,
             max_lost_frames=self.max_lost_frames, enable_keyframes=self.enable_keyframes,
             keyframe_gap=self.keyframes.min_gap if self.keyframes else 5,
-            enable_loop_closing=False, pipelined=self.pipelined, device=self.device,
+            enable_loop_closing=self.enable_loop_closing,
+            loop_min_matches=self.loop_min_matches,
+            loop_min_kf_separation=self.loop_min_kf_separation,
+            loop_consistency=self.loop_consistency, pipelined=self.pipelined, device=self.device,
             sampler=self.sampler, backend=self.backend, match_backend=self.match_backend,
         )
 
@@ -628,6 +643,13 @@ class MultiMotSystem:
                     if joint_last is not None:
                         result = result._replace(Tcw_cur=joint_last)
                         self._after_window_commit(joint_last, _fix_ctx)
+                if added and self.enable_loop_closing:
+                    # a closure rewrites the recorded trajectory
+                    with self._stage("loop_ladder"):
+                        corrected_last = self._maybe_close_loop(frame_idx)
+                    if corrected_last is not None:
+                        result = result._replace(Tcw_cur=corrected_last)
+                        _fix_ctx(Tcw_last=corrected_last, T_velocity=self._velocity)
         if self.state == self.STATE_LOST:
             if self.pipelined and np.isfinite(Tcw_dev_flow).all():
                 # the next frame is already in flight on the raw chain:
@@ -784,6 +806,25 @@ class MultiMotSystem:
             handle, jctx = a["joint"]
             self._joint_window_apply(jctx, *(x.cpu().numpy() for x in handle),
                                      commit_poses=False)
+        if self.enable_loop_closing and a["sim"] is not None and K_old >= 2:
+            # scores against the dispatch-time stack minus its newest entry:
+            # the synchronous path's exclude_last=2
+            scores = a["sim"].cpu().numpy()[: K_old - 1]
+            cand = -1
+            if scores.size and int(scores.max()) >= self.loop_min_matches:
+                best = a["frames_ref"][int(scores.argmax())]
+                # membership may have churned since dispatch
+                cand = next((i for i, f in enumerate(self.keyframes.frames) if f is best), -1)
+            if cand < 0:
+                self._note_loop_candidate(None)
+            else:
+                old_last = np.linalg.inv(self.map.camera_poses[-1]).astype(np.float32)
+                corrected_last = self._maybe_close_loop(a["frame_idx"], cand=cand)
+                if corrected_last is not None:
+                    # the ladder rewrote every recorded row; the chain, the
+                    # in-flight frame and the anchors still need the fold
+                    self._apply_right_factor(np.linalg.inv(old_last) @ corrected_last, pend,
+                                             first_row=len(self.map.camera_poses))
 
     def _maybe_add_keyframe(self, fd: FrameData, Tcw: np.ndarray, feats=None,
                             frame_idx=None) -> bool:
@@ -924,6 +965,82 @@ class MultiMotSystem:
             self.map.obj_records[i].P_lc = (poses_out[f + 1] @ motions_out[f, k]
                                             @ np.linalg.inv(poses_out[f])).astype(np.float32)
         return (poses_out[-1] @ Tcw0_abs).astype(np.float32)
+
+    def _maybe_close_loop(self, frame_idx: int, cand: Optional[int] = None):
+        """The loop ladder on the newest keyframe: place recognition (or the
+        async cadence's precomputed ``cand``), the temporal and consistency
+        gates, Sim3 verification and the pose-graph correction of every
+        recorded row, then (``global_ba_on_loop``) the global BA, whose
+        keyframe corrections non-keyframe rows follow through their anchor
+        keyframe.  Returns the corrected current Tcw when a loop is
+        accepted, else None."""
+        kfs = self.keyframes
+        kf = kfs.frames[-1]
+        if cand is None:
+            cand = kfs.detect_loop(kfs._dev(kf.desc), kfs._dev(kf.valid),
+                                   min_matches=self.loop_min_matches)
+        # temporal guard: candidates too close in time are not loops
+        if cand is None or len(kfs.frames) - 1 - cand < self.loop_min_kf_separation:
+            self._note_loop_candidate(None)
+            return None
+        if not self._note_loop_candidate(kfs.frames[cand].index):
+            return None
+        cam, be = self.cfg.camera, self.cfg.backend
+        traj_Tcw = np.stack([np.linalg.inv(p).astype(np.float32) for p in self.map.camera_poses])
+        with self._stage("loop_sim3_pose_graph"):
+            corrected, n_inl = kfs.close_loop(self.sampler, (frame_idx, "sim3"), kf, cand,
+                                              traj_Tcw, [k.index for k in kfs.frames],
+                                              cam.fx, cam.fy, cam.cx, cam.cy)
+        if n_inl == 0:
+            return None
+        corrected = np.array(corrected)
+        self.map.camera_poses = [np.linalg.inv(T).astype(np.float32) for T in corrected]
+        # keyframes follow their rows, and their points are re-anchored
+        kfs.correct_poses([corrected[k.index] for k in kfs.frames])
+        if be.global_ba_on_loop:
+            kf_rows = [k.index for k in kfs.frames]
+            old_Tcw_kf = [corrected[r].copy() for r in kf_rows]
+            with self._stage("loop_global_ba"):
+                gba = kfs.global_ba(cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+                                    loop_pair=(cand, len(kfs.frames) - 1),
+                                    max_obs=be.global_ba_max_obs, iters=be.global_ba_iters,
+                                    max_corr_m=be.global_ba_max_corr_m)
+            self.gba_stats.append(gba[1] if gba is not None else None)
+            if gba is not None:
+                new_Tcw_kf = gba[0]
+                # non-keyframe rows keep their relative pose to the newest
+                # keyframe at or before them
+                anchor = 0
+                for r in range(corrected.shape[0]):
+                    while anchor + 1 < len(kf_rows) and kf_rows[anchor + 1] <= r:
+                        anchor += 1
+                    corrected[r] = (corrected[r] @ np.linalg.inv(old_Tcw_kf[anchor])
+                                    @ new_Tcw_kf[anchor]).astype(np.float32)
+                self.map.camera_poses = [np.linalg.inv(T).astype(np.float32)
+                                         for T in corrected]
+        if len(corrected) >= 2:
+            self._velocity = (corrected[-1] @ np.linalg.inv(corrected[-2])).astype(np.float32)
+        self.map.loop_events.append((frame_idx, kfs.frames[cand].index, n_inl))
+        self._loop_history.clear()   # accepted: do not re-trigger on this revisit
+        return corrected[-1]
+
+    def _note_loop_candidate(self, cand_frame: Optional[int]) -> bool:
+        """Record one keyframe's loop candidate (its frame index, or None);
+        True when at least ``loop_consistency`` of the newest
+        ``loop_consistency + 1`` detections lie within
+        (loop_consistency + 1) x keyframe gap of this one.  The history is
+        cleared only by an accepted closure, so a Sim3 or drift-gate
+        rejection keeps the evidence for the next keyframe."""
+        self._loop_history.append(cand_frame)
+        need = self.loop_consistency
+        if need <= 1:
+            return cand_frame is not None
+        if cand_frame is None:
+            return False
+        gap = self.keyframes.min_gap if self.keyframes else 5
+        close = [x for x in self._loop_history[-(need + 1):]
+                 if x is not None and abs(x - cand_frame) <= (need + 1) * gap]
+        return len(close) >= need
 
     def _try_relocalize(self, feats, frame_idx: int):
         if feats is None or not self.keyframes.frames:   # no features without keyframes

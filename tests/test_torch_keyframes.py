@@ -157,7 +157,7 @@ def _store_pair(rng, n_kf, N=200, capacity=64, gap=1, pool_size=60):
     a shared pool so neighbours are covisible."""
     pool = np.where(rng.uniform(size=(pool_size, 256)) < 0.5, 1, -1).astype(np.int8)
     js, ts = jkf.KeyframeStore(capacity=capacity, min_gap=gap), \
-        tkf.KeyframeStore(capacity=capacity, min_gap=gap)
+        tkf.KeyframeStore(capacity=capacity, min_gap=gap, device="cpu")
     for i in range(n_kf):
         T = _pose([0.0, 0.0, 0.0, 0.0, 0.0, 0.5 * i])
         desc = _flip(rng, pool[(np.arange(N) + 7 * i) % pool_size], max_flips=20)
@@ -211,7 +211,7 @@ def test_similarity_scores_refuse_bow_scale():
     rng = np.random.default_rng(8)
     _, ts, _ = _store_pair(rng, 5, N=16)
     ts.bow_threshold = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 18"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         ts.similarity_scores(_t(ts.frames[0].desc), _t(ts.frames[0].valid))
 
 

@@ -234,13 +234,22 @@ def test_checkpoint_resume_and_savers(frames, sync_runs, tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(enable_loop_closing=True), "15"),
-    (dict(discover_objects=True), "18"),
+    (dict(discover_objects=True), "21"),
 ])
 def test_unported_backend_features_raise(kw, item):
-    kw.setdefault("enable_loop_closing", False)
     with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        TSystem(TCFG, **kw)
+        TSystem(TCFG, device="cpu", **kw)
+
+
+def test_default_arguments_track(frames):
+    """The JAX package's defaults (loop closing on, keyframes every 5
+    frames) construct and track."""
+    s = TSystem(TCFG, device="cpu")
+    assert s.enable_loop_closing and s.loop_consistency == 3
+    s.track_rgbd(frames[0])
+    r = s.track_rgbd(frames[1])
+    assert r is not None and np.isfinite(np.asarray(r.Tcw_cur)).all()
+    assert [k.index for k in s.keyframes.frames] == [1] and s.map.loop_events == []
 
 
 def test_default_device_is_the_card():

@@ -33,8 +33,9 @@ class JaxKeySampler:
 
     ``pair_keys[i]`` is pair i's key: ``split(PRNGKey(seed), F-1)`` for the
     batched drivers, ``FoldInKeys`` for the live system (its step key
-    ``fold_in(PRNGKey(seed), frame_idx)``).  A ``(frame, "pnp")`` site draws
-    with the step key itself, as relocalization's PnP does."""
+    ``fold_in(PRNGKey(seed), frame_idx)``).  A ``(frame, "pnp")`` or
+    ``(frame, "sim3")`` site draws with the step key itself, as
+    relocalization's PnP and the loop ladder's Sim3 RANSAC do."""
 
     def __init__(self, pair_keys, k_obj_max, n_seeds):
         self.pair_keys, self.K, self.S = pair_keys, k_obj_max, n_seeds
@@ -44,7 +45,7 @@ class JaxKeySampler:
         return cls(jax.random.split(jax.random.PRNGKey(seed), n_pairs), k_obj_max, n_seeds)
 
     def key(self, site):
-        if site[1] == "pnp":
+        if site[1] in ("pnp", "sim3"):
             return self.pair_keys[site[0]]
         k_ego, k_obj = jax.random.split(self.pair_keys[site[0]])
         if site[1] == "ego":
