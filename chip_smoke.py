@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build kernels K1 (csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu)
-     with nvcc, both compilers started together; print the build times and
+     with nvcc and the exact graph-cut labeler (native/graphcut.cc) with the
+     host compiler, all three started together; print the build times and
      the compilers' register / shared-memory reports;
   3. K1 against its plain torch version on the card at the five path
      shapes (live camera 1 x 2048 and batched camera 11 x 2048 with point
@@ -76,10 +77,41 @@ Phases, in order; any failure exits non-zero before the result lines:
      ``solve_global_ba`` (K = 24, 2048 landmark rows, O = 6, 25 iterations);
      rotations and scale within 1e-3, translations and landmarks within
      1e-3 of the problem's extent, Sim3 inliers within 2; ms per call on
-     each device (float32).
-Then the loop figures' JSON line, one JSON line of kernel figures (K1's launches from the synchronous
-live run), the nvidia-smi line, and the final ``{"ok": true, "device": ...}``
-line.  Imports nothing of JAX.
+     each device (float32);
+  9. BoW place recognition at scale, the card against the CPU: a store of
+     520 keyframes x 1024 keypoints x 256 bits (capacity 1024, ~136 MB of
+     descriptors on the card) with one fixed vocabulary-seed array, queried
+     with a noisy revisit of keyframe 137.  Fails unless the vocabulary
+     words and every signature agree within 1e-5, the shortlists and exact
+     scores are equal, and ``detect_loop`` finds 137 on both; ms of
+     ``similarity_scores`` on the card: the first call (training the
+     vocabulary), a warm call at 520 keyframes, the exact batched path at
+     48 keyframes;
+  9b. phase 8's synchronous shuttle once more with ``bow_threshold = 3``
+     (every place recognition from the fourth keyframe on is two-stage; the
+     shortlist of 8 covers the at most 7 keyframes).  Fails unless the
+     vocabulary was trained and the loop events (frame, keyframe frame,
+     inliers) and keyframe frames equal phase 8's; ms per frame;
+  10. mask-free discovery.  (a) ``motion_seg.discover_objects`` on junction
+     frames 1 -> 2 at 1242x375 (step 8, n_max 1024, 24 hypotheses from one
+     fixed seed array, the constant-velocity ego motion of the ground truth
+     0 -> 1), on the card and on the CPU; fails unless the candidate masks
+     are identical, labels agree on >= 99.5 % of them and the energies
+     within rtol 1e-4; ms per call on each device (the card's split into
+     the problem and the labeler, and its device busy time and kernels a
+     call under the profiler), the rasteriser and the host's component
+     labelling, and ``discover_objects_exact``'s energy beside the
+     relaxation's.  (b) ``MultiMotSystem(discover_objects=True)`` at
+     DEFAULT_CONFIG (windows on) on the junction frames, sync and
+     pipelined: ms per frame, discovered instances per frame, object
+     records with ground truth, track IDs, mean camera t-RPE, ATE, K1 and
+     K2 launches, peak memory; fails unless some frame has an instance,
+     some record has ground truth, mean camera t-RPE < 0.10, every output
+     is finite and K2 launches == local-map refinements + fuse scans.
+Then the loop figures' JSON line, the JSON line of phases 9-10, one JSON
+line of kernel figures (K1's launches from the synchronous live run), the
+nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -94,6 +126,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("flow_ba_lm", "match_projected")
+NATIVE = "graphcut"         # native/graphcut.cc, built with the host compiler
 
 # K1 contract with its plain version (the Pallas-vs-XLA contract of the JAX
 # package, tests/test_flow_ba_pallas.py): float32 sums in another order
@@ -581,13 +614,16 @@ def live_config(windows: bool = True):
         D.backend, window_refine=False, joint_window_refine=False))
 
 
-def run_live(dev, frames, cfg, **kw):
-    """One live run; returns (system, delivered results, host s, event ms)."""
+def run_live(dev, frames, cfg, prepare=None, **kw):
+    """One live run; returns (system, delivered results, host s, event ms).
+    ``prepare(system)`` runs after construction, before the first frame."""
     import torch
 
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
 
     s = MultiMotSystem(cfg, seed=0, device=dev, **kw)
+    if prepare is not None:
+        prepare(s)
     ups = [s.upload(fd) for fd in frames]          # uploads are set-up, not the loop
     torch.cuda.synchronize(dev)
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -857,6 +893,7 @@ def phase_loop(dev, frames):
             raise SystemExit(f"loop closing off, yet loop events {events}")
         figures[mode] = dict(ms_per_frame=1e3 * host_s / n, events_ms_per_frame=ev_ms / n,
                              loop_ladder_ms=ladder.get("mean_ms"), loop_events=events,
+                             keyframes=[k.index for k in kf.frames],
                              global_ba=s.gba_stats, ate_m=summ["ego_ate_rmse_m"],
                              t_rpe_refined=summ["cam_t_rpe_refined_mean"], k1_launches=k1,
                              k2_launches=k2, peak_gib=peak / 2**30)
@@ -1072,6 +1109,255 @@ def phase_loop_solvers(dev):
         raise SystemExit("loop solvers: the card and the CPU disagree")
     return figures
 
+BOW_KF, BOW_KP, BOW_TARGET = 520, 1024, 137   # the store of tests/test_bow_scale.py, live width
+
+
+def bow_store(dev, descs, seed_idx, n_kf):
+    """A store of ``n_kf`` keyframes of the given descriptors whose
+    vocabulary seeds are ``seed_idx``."""
+    import torch
+
+    from multimot_track_tpu_torch.pipeline.keyframes import Keyframe, KeyframeStore
+
+    st = KeyframeStore(capacity=1024, min_gap=1, device=dev,
+                       vocab_seed=lambda p, n: torch.from_numpy(seed_idx[:n]))
+    zeros_uv, zeros_X = np.zeros((BOW_KP, 2), np.float32), np.zeros((BOW_KP, 3), np.float32)
+    for i in range(n_kf):
+        st.maybe_add(Keyframe(index=i, Tcw=np.eye(4, dtype=np.float32), uv=zeros_uv,
+                              desc=descs[i], valid=np.ones(BOW_KP, bool), Xw=zeros_X))
+    return st
+
+
+def phase_bow(dev):
+    """Phase 9: BoW place recognition at scale, the card against the CPU."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    descs = (rng.integers(0, 2, (BOW_KF, BOW_KP, 256), dtype=np.int8) * 2 - 1).astype(np.int8)
+    seed_idx = rng.choice(8 * BOW_KP, 256, replace=False).astype(np.int64)
+    q = descs[BOW_TARGET].copy()
+    q[rng.random(q.shape) < 0.05] *= -1
+    runs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        st = bow_store(d, descs, seed_idx, BOW_KF)
+        qd, vd = torch.from_numpy(q).to(d), torch.ones(BOW_KP, dtype=torch.bool, device=d)
+        t0 = time.perf_counter()
+        scores = st.similarity_scores(qd, vd)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        cand = st.detect_loop(qd, vd)
+        sigs = torch.stack([st._sigs[id(kf)][1] for kf in st.frames[:BOW_KF - 2]]).cpu()
+        runs[name] = dict(store=st, scores=scores, cand=cand, first_ms=first_ms, sigs=sigs,
+                          words=st._voc.words.cpu(), q=(qd, vd))
+    k, c = runs["cuda"], runs["cpu"]
+    warm_ms = host_ms(lambda: k["store"].similarity_scores(*k["q"]), reps=5)
+    cpu_warm_ms = host_ms(lambda: c["store"].similarity_scores(*c["q"]), reps=2)
+    st48 = bow_store(dev, descs, seed_idx, 48)
+    exact48_ms = host_ms(lambda: st48.similarity_scores(*k["q"]), reps=5)
+    d_words = float((k["words"] - c["words"]).abs().max())
+    d_sigs = float((k["sigs"] - c["sigs"]).abs().max())
+    short_k, short_c = np.flatnonzero(k["scores"]), np.flatnonzero(c["scores"])
+    same = bool(np.array_equal(k["scores"], c["scores"]))
+    log(f"[bow] {BOW_KF} keyframes x {BOW_KP} keypoints x 256 bits "
+        f"({descs.nbytes / 1e6:.0f} MB of descriptors), capacity 1024: max|dWords| "
+        f"{d_words:.2e}, max|dSig| {d_sigs:.2e} (tol 1e-5); shortlist cuda {short_k.tolist()} "
+        f"cpu {short_c.tolist()}; exact scores equal {same}; detect_loop cuda {k['cand']} "
+        f"cpu {c['cand']} (expect {BOW_TARGET}); score of {BOW_TARGET}: "
+        f"{int(k['scores'][BOW_TARGET])}")
+    log(f"[bow] similarity_scores on the card: first call (trains the vocabulary, "
+        f"{BOW_KF - 2} signatures) {k['first_ms']:.1f} ms, warm {warm_ms:.2f} ms at "
+        f"{BOW_KF} keyframes, exact batched path at 48 keyframes {exact48_ms:.2f} ms | CPU: "
+        f"first {c['first_ms']:.1f} ms, warm {cpu_warm_ms:.2f} ms")
+    if not (d_words <= 1e-5 and d_sigs <= 1e-5 and same and k["cand"] == c["cand"] == BOW_TARGET
+            and len(short_k) <= k["store"].bow_shortlist):
+        raise SystemExit("bow: the card and the CPU disagree, or the revisit was not found")
+    return dict(first_ms=k["first_ms"], warm_ms=warm_ms, exact48_ms=exact48_ms,
+                cpu_first_ms=c["first_ms"], cpu_warm_ms=cpu_warm_ms, max_err_words=d_words,
+                max_err_sigs=d_sigs, candidate=k["cand"])
+
+
+def phase_bow_live(dev, frames, loop):
+    """Phase 9b: phase 8's synchronous shuttle with ``bow_threshold = 3``."""
+    import torch
+
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    def low_threshold(s):
+        s.keyframes.bow_threshold = 3
+
+    n = len(frames)
+    solve_flow_ba_cuda.launches = 0
+    match_projected_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    s, res, host_s, ev_ms = run_live(dev, frames, live_config(), prepare=low_threshold,
+                                     **LOOP_KW)
+    k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
+    events = [tuple(int(v) for v in e) for e in s.map.loop_events]
+    kfs = [k.index for k in s.keyframes.frames]
+    ref = loop["sync"]
+    log(f"[bow live] shuttle, bow_threshold 3: {1e3 * host_s / n:.2f} ms/frame (host clock), "
+        f"{ev_ms / n:.2f} ms/frame (CUDA events), peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; loop events {events} "
+        f"(phase 8: {ref['loop_events']}); keyframes {kfs} (phase 8: {ref['keyframes']}); "
+        f"vocabulary trained {s.keyframes._voc is not None}; K1 {k1}, K2 {k2}")
+    if s.keyframes._voc is None or events != ref["loop_events"] or kfs != ref["keyframes"]:
+        raise SystemExit("bow live: the BoW path did not reproduce phase 8's loop events")
+    if not np.all(np.isfinite(np.stack(s.map.camera_poses))) or not finite_tree(res[-1]):
+        raise SystemExit("bow live: non-finite output")
+    return dict(ms_per_frame=1e3 * host_s / n, events_ms_per_frame=ev_ms / n,
+                loop_events=events, k1_launches=k1, k2_launches=k2)
+
+
+def discovery_inputs(frames, dev):
+    """Junction frames 1 -> 2 as the live system decodes them: metric depth
+    of both, the flow 1 -> 2, and the constant-velocity ego motion of the
+    ground-truth pair 0 -> 1."""
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.geometry import camera as cam_g
+    from multimot_track_tpu_torch.ops import wire
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    cam = DEFAULT_CONFIG.camera
+    packed = [MultiMotSystem._compact_images(fd) for fd in frames[:3]]
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    depth = [cam_g.disparity_png_to_depth(wire._decode_depth(up(p[1]), cam.width), cam.bf)
+             for p in packed[1:3]]
+    flow = wire._decode_flow(up(packed[1][2]), cam.height, cam.width)
+    Twc0, Twc1 = (np.asarray(fd.pose_gt, np.float64) for fd in frames[:2])
+    vel = torch.from_numpy((np.linalg.inv(Twc1) @ Twc0).astype(np.float32)).to(dev)
+    return (depth[0], depth[1], flow, vel, cam.fx, cam.fy, cam.cx, cam.cy)
+
+
+def phase_discovery(dev, frames):
+    """Phase 10(a): ``discover_objects`` at the KITTI camera, the card
+    against the CPU, on one fixed hypothesis-seed array."""
+    import torch
+    from scipy import ndimage
+
+    from multimot_track_tpu_torch.ops import graphcut
+    from multimot_track_tpu_torch.pipeline import motion_seg
+
+    cpu = torch.device("cpu")
+    args = {"cuda": discovery_inputs(frames, dev), "cpu": discovery_inputs(frames, cpu)}
+    site = (2, "discover")
+    # the seeds: 24 fixed indices into the candidates the CPU finds
+    n_cand = int(motion_seg._discovery_problem(FixedSampler(np.zeros((24, 1), np.int64)), site,
+                                               *args["cpu"])[4].sum())
+    sampler = FixedSampler(np.random.default_rng(3).integers(0, max(n_cand, 1), (24, 1)))
+    disc = {d: motion_seg.discover_objects(sampler, site, *args[d]) for d in args}
+    k, c = disc["cuda"], disc["cpu"]
+    same_mask = bool(torch.equal(k.valid.cpu(), c.valid))
+    v = c.valid.numpy()
+    agree = float((k.labels.cpu().numpy()[v] == c.labels.numpy()[v]).mean()) if v.any() else 1.0
+    e_k, e_c = float(k.energy), float(c.energy)
+    ms_k = host_ms(lambda: motion_seg.discover_objects(sampler, site, *args["cuda"]), reps=10)
+    ms_c = host_ms(lambda: motion_seg.discover_objects(sampler, site, *args["cpu"]), reps=3)
+    prob = lambda: motion_seg._discovery_problem(sampler, site, *args["cuda"])
+    ms_prob = host_ms(prob, reps=10)
+    _, uv1, D, graph, _ = prob()
+    ms_seg = host_ms(lambda: graphcut.segment(D, graph), reps=10)
+    split = kernel_split(lambda: motion_seg.discover_objects(sampler, site, *args["cuda"]),
+                         reps=5)
+    dev_ms = per_call_us(split) / 1e3
+    top = sorted(split.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:4]
+    ms_raster = host_ms(lambda: motion_seg.rasterize_labels_at(
+        k.uv_cur, k.labels, k.valid, 375, 1242).cpu(), reps=10)
+    raster = motion_seg.rasterize_labels_at(k.uv_cur, k.labels, k.valid, 375, 1242).cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        comp, n_comp = ndimage.label(ndimage.binary_dilation(raster > 0, np.ones((17, 17), bool)))
+        ndimage.sum_labels(raster > 0, np.where(raster > 0, comp, 0), range(1, n_comp + 1))
+    ms_host = 1e3 * (time.perf_counter() - t0) / 3
+    t0 = time.perf_counter()
+    ex = motion_seg.discover_objects_exact(sampler, site, *args["cuda"])
+    ms_exact = 1e3 * (time.perf_counter() - t0)
+    n_lab = len(np.unique(c.labels.numpy()[v]))
+    log(f"[discovery] junction 1 -> 2 at 1242x375, step 8, n_max 1024, 24 hypotheses: "
+        f"{int(v.sum())} candidates, masks identical {same_mask}, labels agree on "
+        f"{100 * agree:.2f} % (gate 99.5 %), {n_lab} labels used; energy cuda {e_k:.3f} cpu "
+        f"{e_c:.3f} (rtol 1e-4); exact alpha-expansion energy {float(ex.energy):.3f} "
+        f"({ms_exact:.1f} ms on the host)")
+    log(f"[discovery] ms per call: cuda {ms_k:.2f} (problem {ms_prob:.2f}, mean-field + ICM "
+        f"{ms_seg:.2f}), cpu {ms_c:.2f}; rasterise + copy {ms_raster:.2f} ms, host "
+        f"components {ms_host:.2f} ms")
+    log(f"[discovery] profiler: device busy {dev_ms:.3f} ms of the card's call, "
+        f"{sum(n for n, _ in split.values()):.0f} kernels a call, idle share "
+        f"{1 - dev_ms / ms_k:.3f}; top {[(short_name(k), n, round(us, 2)) for k, (n, us) in top]} "
+        f"(kernel, launches a call, us each)")
+    if not (same_mask and agree >= 0.995 and abs(e_k - e_c) <= 1e-4 * max(abs(e_c), 1e-6)
+            and v.any() and np.isfinite(e_k)):
+        raise SystemExit("discovery: the card and the CPU disagree")
+    return dict(cuda_ms=ms_k, cpu_ms=ms_c, device_busy_ms=dev_ms, problem_ms=ms_prob,
+                segment_ms=ms_seg,
+                raster_ms=ms_raster, host_components_ms=ms_host, exact_ms=ms_exact,
+                n_candidates=int(v.sum()), label_agreement=agree, energy_cuda=e_k,
+                energy_cpu=e_c, energy_exact=float(ex.energy))
+
+
+def phase_discovery_live(dev, frames):
+    """Phase 10(b): the live system in mask-free mode at DEFAULT_CONFIG."""
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.ops import wire
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    n, W = len(frames), DEFAULT_CONFIG.camera.width
+    figures = {}
+    for mode, kw in (("sync", {}), ("pipelined", dict(pipelined=True))):
+        instances = {}
+
+        def record(s):
+            inner = s._discover_mask
+
+            def recording(depth):
+                out = inner(depth)
+                lab = wire.unpack_sem4(out, W).cpu().numpy()
+                instances[s._frame_idx] = len(np.unique(lab[lab > 0]))
+                return out
+
+            s._discover_mask = recording
+
+        solve_flow_ba_cuda.launches = 0
+        match_projected_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        s, res, host_s, ev_ms = run_live(dev, frames, live_config(), prepare=record,
+                                         discover_objects=True, **kw)
+        k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
+        peak = torch.cuda.max_memory_allocated(dev)
+        kf = s.keyframes
+        summ = s.summary()
+        recs = [r for r in s.map.obj_records if r.has_gt]
+        tids = sorted({r.track_id for r in s.map.obj_records})
+        stages = s.stage_report()
+        log(f"[discovery live {mode}] {n} frames: {1e3 * host_s / n:.2f} ms/frame (host "
+            f"clock), {ev_ms / n:.2f} ms/frame (CUDA events), peak {peak / 2**30:.3f} GiB; "
+            f"discover stage mean {stages.get('discover', {}).get('mean_ms')} ms")
+        log(f"[discovery live {mode}] instances per frame {instances}; object records "
+            f"{len(s.map.obj_records)} ({len(recs)} with ground truth), track IDs {tids}; "
+            f"mean cam t-RPE {summ['cam_t_rpe_rel_mean']:.5f}, ATE {summ['ego_ate_rmse_m']:.5f} "
+            f"m; K1 {k1}, K2 {k2} (expect {s.n_lm_dispatched} + {kf.n_fuse_scans}); "
+            f"sf_cam_gate {s.cfg.solver.sf_cam_gate}")
+        log(f"[discovery live {mode}] stages: {json.dumps(stages)}")
+        if not (any(instances.values()) and recs and summ["cam_t_rpe_rel_mean"] < 0.10):
+            raise SystemExit(f"discovery live {mode}: no instance discovered, no record with "
+                             "ground truth, or camera t-RPE >= 0.10")
+        if len(res) != n - 1 or not np.all(np.isfinite(np.stack(s.map.camera_poses))) \
+                or not finite_tree(res[-1]):
+            raise SystemExit(f"discovery live {mode}: missing or non-finite output")
+        if not (k2 == s.n_lm_dispatched + kf.n_fuse_scans and k2 > 0 and k1 > 0):
+            raise SystemExit(f"discovery live {mode}: K2 launched {k2} times for "
+                             f"{s.n_lm_dispatched} refinements + {kf.n_fuse_scans} fuse scans")
+        figures[mode] = dict(ms_per_frame=1e3 * host_s / n, events_ms_per_frame=ev_ms / n,
+                             discover_ms=stages.get("discover", {}).get("mean_ms"),
+                             instances=instances, n_records=len(s.map.obj_records),
+                             n_records_gt=len(recs), track_ids=tids,
+                             cam_t_rpe=summ["cam_t_rpe_rel_mean"], ate_m=summ["ego_ate_rmse_m"],
+                             k1_launches=k1, k2_launches=k2, peak_gib=peak / 2**30)
+    return figures
 
 
 def main(argv) -> int:
@@ -1093,9 +1379,12 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:       # one nvcc per source, together
-        for name, _ in zip(KERNELS, pool.map(kernels.build, KERNELS)):
+    builds = [(name, kernels.build) for name in KERNELS] + [(NATIVE, kernels.build_native)]
+    with ThreadPoolExecutor(len(builds)) as pool:   # one compiler per source, together
+        for name, _ in zip([b[0] for b in builds], pool.map(lambda b: b[1](b[0]), builds)):
             log(f"[build] {name} built by {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {NATIVE} (host C++, the exact graph-cut labeler): "
+        f"{(kernels.build_native(NATIVE).parent / 'build.log').read_text().splitlines()[-1]}")
     for name in KERNELS:
         kernels.load(name)
         for line in kernels.build_log(name).splitlines():
@@ -1120,6 +1409,12 @@ def main(argv) -> int:
     loop = phase_loop(dev, shuttle)
     loop_solvers = phase_loop_solvers(dev)
     log(json.dumps({"loop": loop, "loop_solvers": loop_solvers}))
+    bow = phase_bow(dev)
+    bow_live = phase_bow_live(dev, shuttle, loop)
+    discovery = phase_discovery(dev, frames)
+    discovery_live = phase_discovery_live(dev, frames)
+    log(json.dumps({"bow": bow, "bow_live": bow_live, "discovery": discovery,
+                    "discovery_live": discovery_live}))
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{

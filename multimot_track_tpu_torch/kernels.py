@@ -6,6 +6,9 @@ The build happens at first use, from the sources in the checkout, into
 ``build/torch_kernels/<name>-<hash>/`` at the repository root; the hash
 covers the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing here runs at import time.
+
+The host C++ sources under ``native/`` (the exact graph-cut labeler) build
+the same way with the host compiler (``$CXX``, then ``g++``).
 """
 
 from __future__ import annotations
@@ -20,9 +23,11 @@ import time
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent
 CSRC = PACKAGE_DIR / "csrc"
+NATIVE = PACKAGE_DIR / "native"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")   # the JAX package's Makefile
 
 
 class KernelBuildError(RuntimeError):
@@ -40,27 +45,42 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME)")
 
 
-def build(name: str) -> pathlib.Path:
-    """Compile csrc/<name>.cu (if its hashed output is missing) and return
-    the shared library's path.  Raises KernelBuildError with the compiler's
-    output on failure."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _build_lib(name: str, src: pathlib.Path, compiler: str, flags) -> pathlib.Path:
+    """Compile ``src`` into build/torch_kernels/<name>-<hash>/lib<name>.so
+    unless that file exists; the hash covers the source and the flags.
+    Raises KernelBuildError with the compiler's output on failure."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise KernelBuildError(f"cannot run {compiler} for {src.name}: {e}") from e
     log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
     (out_dir / "build.log").write_text(log + f"\nseconds: {time.perf_counter() - t0:.2f}\n")
     if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed for {src.name}:\n{log}")
+        raise KernelBuildError(f"{compiler} failed for {src.name}:\n{log}")
     os.replace(tmp, lib)          # atomic: concurrent builders never see half a file
     return lib
+
+
+def build(name: str) -> pathlib.Path:
+    """Compile csrc/<name>.cu with nvcc (if its hashed output is missing)
+    and return the shared library's path."""
+    return _build_lib(name, CSRC / f"{name}.cu", nvcc_path(), NVCC_FLAGS)
+
+
+def build_native(name: str) -> pathlib.Path:
+    """Compile native/<name>.cc with the host C++ compiler and return the
+    shared library's path."""
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    return _build_lib(name, NATIVE / f"{name}.cc", cxx, CXX_FLAGS)
 
 
 def load(name: str) -> ctypes.CDLL:

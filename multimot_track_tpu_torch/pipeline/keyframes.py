@@ -13,21 +13,25 @@ a pose-graph correction (``close_loop``), then the global bundle adjustment
 over the keyframe graph (``global_ba``), plus two-view point creation
 (``triangulate_between``).
 
-Not ported yet: the BoW retrieval above ``bow_threshold`` keyframes
-(ROADMAP item 16).
+Above ``bow_threshold`` keyframes, place recognition is two-stage
+(``ops/bow``): a TF-IDF signature product over every keyframe, then exact
+match counts on the ``bow_shortlist`` best.  The vocabulary is trained
+once, from the store's first eight keyframes, from k-means seeds drawn by
+``vocab_seed`` (default: ``bow.draw_seed_indices`` from a generator seeded
+0, as the JAX package draws from a fixed key).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from multimot_track_tpu_torch.geometry import camera as cam_g
 from multimot_track_tpu_torch.geometry import se3
-from multimot_track_tpu_torch.ops import matching
+from multimot_track_tpu_torch.ops import bow, matching
 from multimot_track_tpu_torch.solvers import pnp, pose_graph, sim3
 from multimot_track_tpu_torch.solvers.global_ba import GlobalBAParams, solve_global_ba
 from multimot_track_tpu_torch.solvers.initializer import triangulate
@@ -194,10 +198,12 @@ class KeyframeStore:
     store's solves (the card by default; without one the constructor
     raises, and ``device="cpu"`` runs on the CPU); ``match_backend``
     ("auto" | "cuda" | "torch") routes the projected matching of
-    TrackLocalMap and the fuse scan."""
+    TrackLocalMap and the fuse scan; ``vocab_seed(p, n_words)`` returns the
+    BoW vocabulary's k-means seed indices for draw probabilities p."""
 
     def __init__(self, capacity: int = 64, min_gap: int = 5, bow_threshold: int = 48,
-                 device="cuda", match_backend: str = "auto"):
+                 bow_shortlist: int = 8, device="cuda", match_backend: str = "auto",
+                 vocab_seed: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None):
         self.capacity = capacity
         self.min_gap = min_gap
         self.frames: List[Keyframe] = []
@@ -210,7 +216,14 @@ class KeyframeStore:
         self._struct_version = 0     # bumped when membership changes; keys the stack
         self._local_cache = None
         self._stack_cache = None
-        self.bow_threshold = bow_threshold   # above it place recognition needs ops/bow
+        self.bow_threshold = bow_threshold   # above it place recognition is two-stage
+        self.bow_shortlist = bow_shortlist
+        self.vocab_seed = vocab_seed or (lambda p, n: bow.draw_seed_indices(
+            p, n, torch.Generator().manual_seed(0)))
+        self._voc: Optional[bow.Vocabulary] = None   # trained at the first BoW query
+        # id(kf) -> (kf, signature): the keyframe is kept with its entry, so
+        # its id() cannot be recycled by a new keyframe while the entry lives
+        self._sigs: dict = {}
         self.n_fuse_scans = 0        # fuse scans launched
         self.n_fused = 0             # map points fused away
         self.n_culled = 0            # map points culled
@@ -326,17 +339,49 @@ class KeyframeStore:
                                               self._dev(kf.valid),
                                               threshold=threshold).valid.sum())
 
+    def _bow_signature(self, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        if self._voc is None:
+            # trained once, from the store's early descriptors: retrieval
+            # only ranks keyframes of this same scene
+            train = torch.cat([self._dev(kf.desc) for kf in self.frames[:8]])
+            tval = torch.cat([self._dev(kf.valid) for kf in self.frames[:8]])
+            init_idx = self.vocab_seed(bow.seed_probabilities(tval), 256)
+            self._voc = bow.train_vocabulary(init_idx.to(self.device), train, tval)
+        return bow.signature(self._voc, desc, valid)
+
+    def _kf_signature(self, kf: Keyframe) -> torch.Tensor:
+        e = self._sigs.get(id(kf))
+        if e is not None and e[0] is kf:
+            return e[1]
+        sig = self._bow_signature(self._dev(kf.desc), self._dev(kf.valid))
+        if len(self._sigs) > 2 * len(self.frames) + 16:
+            live = {id(f) for f in self.frames}
+            self._sigs = {k: v for k, v in self._sigs.items() if k in live}
+        self._sigs[id(kf)] = (kf, sig)
+        return sig
+
+    def _bow_scores(self, desc: torch.Tensor, valid: torch.Tensor, K: int) -> np.ndarray:
+        """Two-stage retrieval: signature similarity over the first K
+        keyframes, exact match counts on the ``bow_shortlist`` best only."""
+        q = self._bow_signature(desc, valid)
+        sigs = torch.stack([self._kf_signature(kf) for kf in self.frames[:K]])
+        sim = bow.retrieve(q, sigs).cpu().numpy()
+        scores = np.zeros(K, np.int32)
+        for k in np.argsort(sim)[::-1][:self.bow_shortlist]:
+            scores[k] = self._pair_count(desc, valid, self.frames[int(k)])
+        return scores
+
     def similarity_scores(self, desc: torch.Tensor, valid: torch.Tensor,
                           exclude_last: int = 2) -> np.ndarray:
         """Mutual-match count against every stored keyframe but the newest
-        ``exclude_last`` (place recognition), all in one batched pass."""
+        ``exclude_last`` (place recognition): all in one batched pass, or,
+        above ``bow_threshold`` keyframes, on the BoW shortlist only (zeros
+        elsewhere)."""
         K = len(self.frames) - exclude_last
         if K <= 0:
             return np.zeros(max(K, 0), np.int32)
         if len(self.frames) > self.bow_threshold:
-            raise NotImplementedError(
-                f"place recognition over more than {self.bow_threshold} keyframes needs "
-                "the BoW retrieval of ops/bow, which is not ported yet (ROADMAP item 16)")
+            return self._bow_scores(desc, valid, K)
         stacked = self._stacked_descriptors()
         if stacked is None:   # mixed keypoint counts: one keyframe at a time
             return np.asarray([self._pair_count(desc, valid, kf) for kf in self.frames[:K]],

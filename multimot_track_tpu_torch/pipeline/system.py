@@ -4,7 +4,8 @@ Port of ``multimot_track_tpu.pipeline.system`` for the live path with
 keyframes, fused TrackLocalMap, the trailing-window BA, map-point fusion
 and culling, keyframe culling, the joint ego+object window BA,
 relocalization on LOST and loop closing, in the synchronous and the
-pipelined (one-frame-latency, async keyframe cadence) modes:
+pipelined (one-frame-latency, async keyframe cadence) modes, with given
+instance masks or with masks discovered from motion alone:
 
 * per frame, ``tracker.full_step`` (frontend, pair build, ego and object
   solves) and the frame's FAST + ORB + depth features run on ``device``;
@@ -22,15 +23,17 @@ pipelined (one-frame-latency, async keyframe cadence) modes:
   RANSAC, the pose-graph correction of the whole trajectory and the global
   BA over the keyframe graph (``_maybe_close_loop``);
 * the window's wire tensors stay on the device (``_win``), so the window
-  refinements re-read the frames without another upload.
+  refinements re-read the frames without another upload;
+* mask-free mode (``discover_objects``): from frame 2 on, the frame's
+  instance mask is synthesised on the device from the previous window
+  entry's depth and flow and the constant-velocity ego motion
+  (``motion_seg``), its connected components cut on the host.
 
 Random draws: RANSAC, PnP and Sim3 hypotheses come from a
 ``ransac.HypothesisSampler`` with ``pair_id = frame_idx`` (the JAX package
 folds the frame index into its key; the loop ladder draws at its
-keyframe's frame), and depth / flow noise from a ``torch.Generator``.
-
-Not ported yet, and refused by the constructor rather than skipped:
-mask-free object discovery (ROADMAP item 21).
+keyframe's frame; discovery at ``(frame_idx, "discover")``), and depth /
+flow noise from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from multimot_track_tpu_torch.geometry import camera as cam_g
 from multimot_track_tpu_torch.io.frame import FrameData
 from multimot_track_tpu_torch.ops import wire
 from multimot_track_tpu_torch.pipeline import frames as F
+from multimot_track_tpu_torch.pipeline import motion_seg
 from multimot_track_tpu_torch.pipeline import tracker
 from multimot_track_tpu_torch.pipeline.keyframes import (
     Keyframe, KeyframeStore, _adjacent_match_counts, _batched_match_counts,
@@ -194,6 +198,11 @@ class MultiMotSystem:
     ``loop_min_matches`` descriptor matches, and be named by
     ``loop_consistency`` of the newest ``loop_consistency + 1`` keyframes.
 
+    ``discover_objects``: synthesise the instance masks from motion instead
+    of reading them (the frames' own masks are ignored from frame 2 on);
+    it turns on the scene-flow reclassification of the static set
+    (``sf_cam_gate = 0.35``) unless the caller set a gate.
+
     ``device``: where the per-frame work runs.  ``sampler``: the hypothesis
     sampler (default: multinomial draws from a generator seeded with
     ``seed``).  ``backend``: the flow-BA route (``"auto" | "cuda" |
@@ -213,12 +222,14 @@ class MultiMotSystem:
                  device="cuda", sampler: Optional[HypothesisSampler] = None,
                  backend: Optional[str] = None, match_backend: str = "auto"):
         be = cfg.backend
-        if discover_objects:
-            raise NotImplementedError(
-                "discover_objects (mask-free object discovery) is not ported to "
-                "multimot_track_tpu_torch yet (ROADMAP item 21); turn it off")
         if pipelined and not be.fused_refine:
             raise ValueError("pipelined mode requires backend.fused_refine")
+        # unmasked movers contaminate the static set, so mask-free mode
+        # needs the scene-flow reclassification pass
+        self.discover_objects = discover_objects
+        if discover_objects and cfg.solver.sf_cam_gate == 0.0:
+            cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                      sf_cam_gate=0.35))
         self.cfg = cfg
         self.seed = seed
         self.device = torch.device(device)
@@ -304,7 +315,8 @@ class MultiMotSystem:
             enable_loop_closing=self.enable_loop_closing,
             loop_min_matches=self.loop_min_matches,
             loop_min_kf_separation=self.loop_min_kf_separation,
-            loop_consistency=self.loop_consistency, pipelined=self.pipelined, device=self.device,
+            loop_consistency=self.loop_consistency, discover_objects=self.discover_objects,
+            pipelined=self.pipelined, device=self.device,
             sampler=self.sampler, backend=self.backend, match_backend=self.match_backend,
         )
 
@@ -326,6 +338,7 @@ class MultiMotSystem:
                 "state": self.state,
                 "velocity": self._velocity,
                 "corr": self._corr,
+                "discover_objects": self.discover_objects,
                 "keyframes": self.keyframes.frames if self.keyframes else None,
                 "win": [{k: (v if k == "row" else v.cpu().numpy()) for k, v in w.items()}
                         for w in self._win],
@@ -338,6 +351,10 @@ class MultiMotSystem:
 
         with open(path, "rb") as f:
             d = pickle.load(f)
+        if d.get("discover_objects", False) != self.discover_objects:
+            raise ValueError(f"the checkpoint was written with discover_objects="
+                             f"{d.get('discover_objects', False)}; this system has "
+                             f"{self.discover_objects}")
         self._frame_idx = d["frame_idx"]
         self._ctx = _to_device(d["ctx"], self.device) if d["ctx"] is not None else None
         self._last_obs = (_to_device(d["last_obs"], self.device)
@@ -394,6 +411,15 @@ class MultiMotSystem:
             with self._stage("upload"):
                 gray, depth, flow, sem = self.upload(fd)
         self._dev_images = (self._frame_idx, gray, depth)
+        if self.discover_objects and self._pending is not None:
+            # discovery reads the previous frame's window entry and velocity:
+            # drain the in-flight frame first (its result is returned below)
+            self.flush(_buffer=True)
+        if self.discover_objects and self._win and self._frame_idx >= 2:
+            # from frame 2 on: with T_rel = I the whole scene would fail
+            # the ego-consistency gate and be flagged dynamic
+            with self._stage("discover"):
+                sem = self._discover_mask(depth)
         if self._last_obs is None:
             # first frame: pose = I, frontend only
             K = cfg.padding.k_obj_max
@@ -854,9 +880,48 @@ class MultiMotSystem:
     # The trailing window: its frames' device tensors, the unfused window
     # BA and the joint ego+object window BA.
 
+    def _discover_mask(self, depth_cur: torch.Tensor) -> torch.Tensor:
+        """The current frame's packed instance mask, from motion alone: the
+        discovery runs on the previous frame's grid with the constant-velocity
+        ego motion, and its labels are rasterised at their flow-shifted
+        (current-frame) positions.  Instances are the connected components of
+        the dilated dynamic raster, the largest ``k_obj_max - 1`` of at least
+        640 px (one object may come out as several motion clusters)."""
+        from scipy import ndimage
+
+        cam = self.cfg.camera
+        prev = self._win[-1]
+        depth0 = cam_g.disparity_png_to_depth(wire._decode_depth(prev["depth"], cam.width),
+                                              cam.bf)
+        depth1 = cam_g.disparity_png_to_depth(wire._decode_depth(depth_cur, cam.width), cam.bf)
+        flow0 = wire._decode_flow(prev["flow"], cam.height, cam.width)
+        disc = motion_seg.discover_objects(
+            self.sampler, (self._frame_idx, "discover"), depth0, depth1, flow0,
+            torch.from_numpy(np.asarray(self._velocity, np.float32)).to(self.device),
+            cam.fx, cam.fy, cam.cx, cam.cy)
+        raster = motion_seg.rasterize_labels_at(disc.uv_cur, disc.labels, disc.valid,
+                                                cam.height, cam.width, step=8).cpu().numpy()
+        # dilate by one 8 px cell so near-adjacent fragments merge, then
+        # undo the dilation on the labelled components
+        binary = ndimage.binary_dilation(raster > 0, np.ones((17, 17), bool))
+        comp, n_comp = ndimage.label(binary)
+        comp = np.where(raster > 0, comp, 0)
+        mask = np.zeros_like(raster)
+        if n_comp:
+            sizes = ndimage.sum_labels(raster > 0, comp, range(1, n_comp + 1))
+            order = np.argsort(sizes)[::-1][:self.cfg.padding.k_obj_max - 1]
+            for new_id, c in enumerate(order, start=1):
+                # distant objects are small: gate loosely and leave the final
+                # call to the tracker's min_obj_points
+                if sizes[c] >= 640:
+                    mask[comp == c + 1] = new_id
+        return torch.from_numpy(wire.pack_sem4(np.clip(mask, 0, 15))).to(self.device)
+
     def _push_window(self, gray, depth, flow, sem, traj_row: int):
+        """Keep the trailing window's device tensors for the window
+        refinements and for discovery, which reads the previous frame."""
         be = self.cfg.backend
-        if not (be.window_refine or be.joint_window_refine):
+        if not (be.window_refine or be.joint_window_refine or self.discover_objects):
             return
         self._win.append({"gray": gray, "depth": depth, "flow": flow, "sem": sem,
                           "row": traj_row})

@@ -208,10 +208,15 @@ def test_store_local_map_and_fuse_and_cull_match_jax():
 
 
 def test_similarity_scores_refuse_bow_scale():
+    """Past ``bow_threshold`` a store of fewer training descriptors (5 x 16)
+    than vocabulary words (256) cannot seed k-means: both packages refuse.
+    ``tests/test_torch_bow.py`` holds the BoW path itself to the JAX package."""
     rng = np.random.default_rng(8)
-    _, ts, _ = _store_pair(rng, 5, N=16)
-    ts.bow_threshold = 4
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+    js, ts, _ = _store_pair(rng, 5, N=16)
+    js.bow_threshold = ts.bow_threshold = 4
+    with pytest.raises(ValueError):
+        js.similarity_scores(jnp.asarray(js.frames[0].desc), jnp.asarray(js.frames[0].valid))
+    with pytest.raises(ValueError, match="vocabulary seeds"):
         ts.similarity_scores(_t(ts.frames[0].desc), _t(ts.frames[0].valid))
 
 

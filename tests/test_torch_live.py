@@ -237,8 +237,14 @@ def test_checkpoint_resume_and_savers(frames, sync_runs, tmp_path):
     (dict(discover_objects=True), "21"),
 ])
 def test_unported_backend_features_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-        TSystem(TCFG, device="cpu", **kw)
+    """The backend features that raised until their ROADMAP item was ported
+    now construct, with the configuration the JAX package derives
+    (discovery turns on the scene-flow gate)."""
+    t, j = TSystem(TCFG, device="cpu", **kw), JSystem(JCFG, **kw)
+    assert t.cfg == dataclasses.replace(TCFG, solver=dataclasses.replace(
+        TCFG.solver, sf_cam_gate=0.35))
+    assert t.cfg.solver.sf_cam_gate == j.cfg.solver.sf_cam_gate
+    assert all(getattr(t, k) == getattr(j, k) for k in kw)
 
 
 def test_default_arguments_track(frames):

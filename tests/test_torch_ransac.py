@@ -35,7 +35,9 @@ class JaxKeySampler:
     batched drivers, ``FoldInKeys`` for the live system (its step key
     ``fold_in(PRNGKey(seed), frame_idx)``).  A ``(frame, "pnp")`` or
     ``(frame, "sim3")`` site draws with the step key itself, as
-    relocalization's PnP and the loop ladder's Sim3 RANSAC do."""
+    relocalization's PnP and the loop ladder's Sim3 RANSAC do; a
+    ``(frame, "discover")`` site (k = 1) with the key the JAX system folds
+    for discovery."""
 
     def __init__(self, pair_keys, k_obj_max, n_seeds):
         self.pair_keys, self.K, self.S = pair_keys, k_obj_max, n_seeds
@@ -47,6 +49,9 @@ class JaxKeySampler:
     def key(self, site):
         if site[1] in ("pnp", "sim3"):
             return self.pair_keys[site[0]]
+        if site[1] == "discover":
+            # the live system's discovery key: fold_in(PRNGKey(seed), 100_000 + frame)
+            return self.pair_keys[100_000 + site[0]]
         k_ego, k_obj = jax.random.split(self.pair_keys[site[0]])
         if site[1] == "ego":
             return k_ego
