@@ -6,9 +6,10 @@
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build kernels K1 (csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu)
-     with nvcc and the exact graph-cut labeler (native/graphcut.cc) with the
-     host compiler, all three started together; print the build times and
-     the compilers' register / shared-memory reports;
+     with nvcc and the host sources (native/graphcut.cc, the exact graph-cut
+     labeler; native/png_unfilter.cc, the PNG unfilter) with the host
+     compiler, all four started together; print the build times and the
+     compilers' register / shared-memory reports;
   3. K1 against its plain torch version on the card at the five path
      shapes (live camera 1 x 2048 and batched camera 11 x 2048 with point
      weights, live object 18 x 4096, batched object 198 x 4096, and a
@@ -107,8 +108,35 @@ Phases, in order; any failure exits non-zero before the result lines:
      records with ground truth, track IDs, mean camera t-RPE, ATE, K1 and
      K2 launches, peak memory; fails unless some frame has an instance,
      some record has ground truth, mean camera t-RPE < 0.10, every output
-     is finite and K2 launches == local-map refinements + fuse scans.
-Then the loop figures' JSON line, the JSON line of phases 9-10, one JSON
+     is finite and K2 launches == local-map refinements + fuse scans;
+  11. the sequence entry points.  (a) The junction frames written as a
+     KITTI tree (8-bit RGB PNG through ``write_png``, 16-bit depth PNG,
+     .flo, mask text, poses, times) under build/scratch/entry/ (~66 MB,
+     removed afterwards), read back through ``KittiSequence``: frames equal
+     to the rendered ones up to the 8-bit rounding; the native PNG unfilter
+     equal to its plain version; ms per frame of PNG decode, .flo, mask
+     text and ``load_frame``.  (b) ``cli.run`` (the body
+     of ``cli.main``) on that tree at DEFAULT_CONFIG: K1 > 0, K2 ==
+     refinements + fuse scans, t-RPE < 0.05, ATE < 0.5 m, ms per frame
+     beside phase 6's.  (c) A 14-frame stereo tree at the KITTI camera
+     through ``--stereo --discover-objects`` and ``--stereo --quad-stereo``
+     (the same launch checks, quad matches > 0; accuracy reported: the LK
+     flow loses frames 8-12 of that tree in the JAX package too);
+     ``dense_disparity`` and ``dense_flow`` on the card against the CPU
+     (integer disparities equal, sub-pixel within 1e-4, flow within the
+     CPU tests' bounds) and their ms a call with the quad gate's; then
+     ``tools/measure_quad_ab.py``'s configuration (640x384, 1024 / 4096
+     points, ``max_disp=64``, both textures, quad off and on), each row
+     replaying the JAX package's hypotheses (``tools/quad_ab_draws/``),
+     beside ``QUAD_AB.json``: ATE < 0.5 m where that file's row meets it;
+     the default quad-on row on the port's own draws reported.  (d) A
+     6-frame TUM tree through ``--tum --discover-objects``, and 4 frames of
+     the KITTI tree served through ``serve_connection`` over a socketpair,
+     with and without flow arrays: every reply equal to an in-process
+     ``track_rgbd`` to 1e-6.  The CLI's own output goes to
+     entry_cli_*.log under ``--logs DIR`` (default
+     build/scratch/smoke_logs/); ``--entry-only`` runs phases 1, 2 and 11.
+Then the loop figures' JSON line, the JSON lines of phases 9-10 and 11, one JSON
 line of kernel figures (K1's launches from the synchronous live run), the
 nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
 Imports nothing of JAX.
@@ -126,7 +154,12 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("flow_ba_lm", "match_projected")
-NATIVE = "graphcut"         # native/graphcut.cc, built with the host compiler
+# native/<name>.cc, built with the host compiler: the exact graph-cut
+# labeler and the PNG unfilter
+NATIVE = ("graphcut", "png_unfilter")
+ENTRY_DIR = os.path.join(REPO, "build", "scratch", "entry")
+LOG_DIR = os.path.join(REPO, "build", "scratch", "smoke_logs")  # default of --logs
+STEREO_N, TUM_N, SERVE_N = 14, 6, 4     # phase 11's stereo, TUM and served frames
 
 # K1 contract with its plain version (the Pallas-vs-XLA contract of the JAX
 # package, tests/test_flow_ba_pallas.py): float32 sums in another order
@@ -704,7 +737,7 @@ def phase_live(dev, frames):
                                    and "joint_ba" in stages):
             raise SystemExit(f"live sync: local-map accepts {s.lm_accepted_frames}, "
                              f"joint window refines {s.n_joint_refines}")
-        runs[mode] = dict(system=s, k1=k1, k2=k2)
+        runs[mode] = dict(system=s, k1=k1, k2=k2, ms_per_frame=1e3 * host_s / n)
 
     s_p, _, host_p, _ = run_live(dev, frames, cfg, match_backend="torch")
     s_k = runs["sync"]["system"]
@@ -725,7 +758,8 @@ def phase_live(dev, frames):
         f"t-RPE {summ['obj_t_rpe_refined_mean']}; stages {json.dumps(s_o.stage_report())}")
     if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
         raise SystemExit("live, windows off: tracking accuracy out of bounds")
-    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"], system=s_k)
+    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"], system=s_k,
+                ms_per_frame=runs["sync"]["ms_per_frame"])
 
 
 def host_ms(fn, reps):
@@ -912,6 +946,49 @@ class FixedSampler:
 
         idx = torch.from_numpy(self.idx).to(p.device)
         return idx[None].expand(p.shape[0], -1, -1)
+
+
+class HostSampler:
+    """Multinomial draws from a host ``torch.Generator``: on the card, the
+    draws the port makes on the CPU at the same seed."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        from multimot_track_tpu_torch.solvers.ransac import MultinomialSampler
+
+        self.inner = MultinomialSampler(torch.Generator().manual_seed(seed))
+
+    def __call__(self, p, iters, sites, k=3):
+        return self.inner(p.cpu(), iters, sites, k).to(p.device)
+
+
+class ReplaySampler:
+    """Replays recorded hypotheses (``tools/torch_quad_trace.py record``:
+    the JAX package's draws, keyed ``repr(site)#occurrence``).  A site the
+    recording lacks draws from a host generator and counts as missed."""
+
+    def __init__(self, path, seed: int = 0):
+        d = np.load(path)
+        self.table = {str(k): d[f"s{n}"] for n, k in enumerate(d["keys"])}
+        self.seen, self.hits, self.misses = {}, 0, 0
+        self.fallback = HostSampler(seed)
+
+    def __call__(self, p, iters, sites, k=3):
+        import torch
+
+        rows = []
+        for m, site in enumerate(sites):
+            key = repr(tuple(site))
+            self.seen[key] = self.seen.get(key, -1) + 1
+            a = self.table.get(f"{key}#{self.seen[key]}")
+            if a is not None and a.shape == (iters, k):
+                self.hits += 1
+                rows.append(torch.from_numpy(a.astype(np.int64)).to(p.device))
+            else:
+                self.misses += 1
+                rows.append(self.fallback(p[m:m + 1], iters, [site], k)[0])
+        return torch.stack(rows)
 
 
 def se3_exp(xi) -> np.ndarray:
@@ -1360,6 +1437,402 @@ def phase_discovery_live(dev, frames):
     return figures
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the entry points on the card
+
+
+def _counters():
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    return solve_flow_ba_cuda, match_projected_cuda
+
+
+def reset_launches():
+    for fn in _counters():
+        fn.launches = 0
+
+
+def read_launches():
+    return tuple(fn.launches for fn in _counters())
+
+
+def run_cli_logged(argv, log_path):
+    """``cli.run(argv)`` with its per-frame lines into ``log_path``; returns
+    (system, sequence, summary, wall s, K1 launches, K2 launches)."""
+    import contextlib
+
+    import torch
+
+    from multimot_track_tpu_torch import cli
+
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        s, seq, summ = cli.run(argv)
+    torch.cuda.synchronize()
+    return (s, seq, summ, time.perf_counter() - t0) + read_launches()
+
+
+def check_cli_run(tag, s, summ, k1, k2, n, ate_max=None, rpe_max=None):
+    """The checks every CLI run of phase 11 shares."""
+    kf = s.keyframes
+    poses = np.stack(s.map.camera_poses)
+    log(f"[entry {tag}] K1 {k1}, K2 {k2} (expect {s.n_lm_dispatched} local-map refinements "
+        f"+ {kf.n_fuse_scans} fuse scans); keyframes {[k.index for k in kf.frames]}; "
+        f"cam t-RPE {summ['cam_t_rpe_rel_mean']}, ATE {summ['ego_ate_rmse_m']} m, "
+        f"{summ['n_obj_estimates']} object records, state {s.state}")
+    if summ["n_frames"] != n or len(poses) != n or not np.all(np.isfinite(poses)):
+        raise SystemExit(f"entry {tag}: {summ['n_frames']} frames of {n}, or non-finite poses")
+    if not (k1 > 0 and k2 == s.n_lm_dispatched + kf.n_fuse_scans and k2 > 0):
+        raise SystemExit(f"entry {tag}: K1 {k1}, K2 {k2} launches for {s.n_lm_dispatched} "
+                         f"refinements + {kf.n_fuse_scans} fuse scans")
+    if ate_max is not None and not (summ["ego_ate_rmse_m"] < ate_max):
+        raise SystemExit(f"entry {tag}: ATE {summ['ego_ate_rmse_m']} m, bound {ate_max}")
+    if rpe_max is not None and not (summ["cam_t_rpe_rel_mean"] < rpe_max):
+        raise SystemExit(f"entry {tag}: cam t-RPE {summ['cam_t_rpe_rel_mean']}, bound {rpe_max}")
+
+
+def host_ms_each(fn, items):
+    """Wall ms per item of ``fn(item)`` over ``items`` (one pass), and the
+    results."""
+    t0 = time.perf_counter()
+    out = [fn(x) for x in items]
+    return 1e3 * (time.perf_counter() - t0) / len(items), out
+
+
+def phase_entry_readers(dev, frames):
+    """Phase 11(a): a KITTI tree of the frames read back by ``KittiSequence``."""
+    import shutil
+    import zlib
+
+    from multimot_track_tpu_torch.io import kitti, png
+    from multimot_track_tpu_torch.io.flowio import read_flo
+    from multimot_track_tpu_torch.io.synth import write_kitti_tree
+
+    root = os.path.join(ENTRY_DIR, "kitti")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_kitti_tree(root, frames)
+    log(f"[entry readers] wrote the {len(frames)}-frame KITTI tree (8-bit RGB image/, 16-bit "
+        f"depth/, flow/*.flo, semantic/*.txt) in {time.perf_counter() - t0:.1f} s")
+    py = kitti.KittiSequence(root, device=dev)
+    n = len(py)
+    paths = [py.frame_paths(i) for i in range(n)]
+    ms_png, _ = host_ms_each(lambda p: (png.read_png(p["image"]), png.read_png(p["depth"])),
+                             paths)
+    ms_flo, _ = host_ms_each(lambda p: read_flo(p["flow"]), paths)
+    H, W = frames[0].gray.shape
+    ms_mask, _ = host_ms_each(lambda p: kitti.load_mask_txt(p["semantic"], H, W), paths)
+    ms_py, fd_py = host_ms_each(py.load_frame, range(n))
+    log(f"[entry readers] ms per frame: PNG decode (RGB image + 16-bit depth) {ms_png:.2f}, "
+        f".flo {ms_flo:.2f}, mask text {ms_mask:.2f}; load_frame {ms_py:.2f}")
+    for i, (fd, src) in enumerate(zip(fd_py, frames)):
+        sem = np.where(src.sem_mask < 4, src.sem_mask, 0)
+        depth = np.clip(np.round(src.depth_raw), 0, 65535).astype(np.float32)
+        if not (np.array_equal(fd.flow, src.flow) and np.array_equal(fd.sem_mask, sem)
+                and np.array_equal(fd.depth_raw, depth)
+                and np.abs(fd.gray - src.gray).max() <= 0.5 + 1e-3):
+            raise SystemExit(f"entry readers: frame {i} does not round-trip the tree")
+    rng = np.random.default_rng(11)
+    rows = rng.integers(0, 256, (375, 1 + 1242 * 3), dtype=np.uint8)
+    rows[:, 0] = rng.integers(0, 5, 375)
+    if not np.array_equal(png.unfilter_native(rows, 3), png.unfilter_plain(rows, 3)):
+        raise SystemExit("entry readers: the native PNG unfilter disagrees with its plain version")
+    # the decode's parts on one image of the tree: inflate, then unfilter
+    with open(paths[0]["image"], "rb") as f:
+        data = f.read()
+    raw = b"".join(body for kind, body in png._chunks(data, f.name) if kind == b"IDAT")
+    ms_inflate, _ = host_ms_each(zlib.decompress, [raw] * 10)
+    img_rows = np.frombuffer(zlib.decompress(raw), np.uint8).reshape(H, -1)
+    ms_unfilter, _ = host_ms_each(lambda r: png.unfilter_native(r, 3), [img_rows] * 10)
+    log(f"[entry readers] the {n}-frame tree round-trips; native PNG unfilter == plain on "
+        f"375 rows of 1242 RGB pixels; one RGB image: inflate {ms_inflate:.2f} ms, native "
+        f"unfilter {ms_unfilter:.2f} ms")
+    return root, dict(png_ms=ms_png, flo_ms=ms_flo, mask_ms=ms_mask, load_frame_ms=ms_py,
+                      inflate_ms=ms_inflate, unfilter_ms=ms_unfilter)
+
+
+def flow_agreement(a, b):
+    """(median, 99.9th percentile, share beyond 0.05 px) of |a - b| per pixel."""
+    e = np.abs(a - b).max(-1)
+    return float(np.median(e)), float(np.percentile(e, 99.9)), float((e > 0.05).mean())
+
+
+def phase_entry_stereo(dev, log_dir):
+    """Phase 11(c): the stereo CLI, disparity and flow card against CPU, and
+    the quad A/B configuration."""
+    import dataclasses
+
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.frontend import optical_flow, stereo
+    from multimot_track_tpu_torch.io import kitti
+    from multimot_track_tpu_torch.io.png import read_png
+    from multimot_track_tpu_torch.io.stereo_seq import StereoKittiSequence
+    from multimot_track_tpu_torch.io.synth import (KITTI_SYNTH_CAM, synth_camera_config,
+                                                   write_stereo_tree)
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    n = STEREO_N
+    root = os.path.join(ENTRY_DIR, "stereo")
+    t0 = time.perf_counter()
+    write_stereo_tree(root, n_frames=n, cam=dict(KITTI_SYNTH_CAM), texture="distinct")
+    log(f"[entry stereo] rendered the {n}-frame stereo tree at the KITTI camera in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for mode, extra in (("discover", ["--discover-objects"]), ("quad", ["--quad-stereo"])):
+        s, seq, summ, wall, k1, k2 = run_cli_logged(
+            [root, "--stereo", *extra], os.path.join(log_dir, f"entry_cli_stereo_{mode}.log"))
+        log(f"[entry stereo {mode}] {n} frames: {1e3 * wall / n:.2f} ms/frame end to end "
+            f"(disparity, flow and the gate in the reader), track_rgbd "
+            f"{1e3 * summ['mean_frame_time_s']:.2f} ms/frame; n_quad_matched "
+            f"{summ.get('n_quad_matched')}; flows estimated {seq.n_flow_estimated}")
+        # accuracy is reported, not gated: on this tree the LK flow loses
+        # frames 8-12 (rotational flow beyond its capture range) in the JAX
+        # package as well, and what is left is the RANSAC draw's (the JAX
+        # package's CLI on the CPU: ATE 1.73 m with discovery, 1.38 m with
+        # the quad gate; with the quad gate 0.94-2.60 m over seeds 0-2, and
+        # the card 1.38 m on the JAX package's seed-0 draws:
+        # tools/torch_stereo_reference.py, tools/torch_quad_trace.py)
+        check_cli_run(f"stereo {mode}", s, summ, k1, k2, n)
+        if mode == "quad" and not summ["n_quad_matched"] > 0:
+            raise SystemExit("entry stereo: the quad gate matched nothing")
+        out[mode] = dict(ms_per_frame=1e3 * wall / n, track_ms=1e3 * summ["mean_frame_time_s"],
+                         cam_t_rpe=summ["cam_t_rpe_rel_mean"], ate_m=summ["ego_ate_rmse_m"],
+                         n_quad_matched=summ.get("n_quad_matched"), k1=k1, k2=k2)
+
+    # disparity and flow on the card against the CPU, one frame pair
+    p = StereoKittiSequence(root, device="cpu")
+    g = [kitti._rgb_to_gray(read_png(p.frame_paths(i)[k])) for i, k in
+         ((0, "image"), (0, "right"), (1, "image"), (1, "right"))]
+    gc = [torch.from_numpy(x) for x in g]
+    gd = [x.to(dev) for x in gc]
+    t0 = time.perf_counter()
+    disp_c = stereo.dense_disparity(gc[0], gc[1]).numpy()
+    flow_c = optical_flow.dense_flow(gc[0], gc[2]).numpy()
+    cpu_s = time.perf_counter() - t0
+    disp_d = stereo.dense_disparity(gd[0], gd[1])
+    flow_d = optical_flow.dense_flow(gd[0], gd[2])
+    dd, fd = disp_d.cpu().numpy(), flow_d.cpu().numpy()
+    same_int = bool(np.array_equal(np.floor(dd), np.floor(disp_c))
+                    and np.array_equal(dd > 0, disp_c > 0))
+    d_sub = float(np.abs(dd - disp_c).max())
+    f_med, f_999, f_far = flow_agreement(fd, flow_c)
+    log(f"[entry stereo] card vs CPU (CPU {cpu_s:.1f} s): integer disparities equal {same_int}, "
+        f"valid {float((dd > 0).mean()):.4f}, max |d disparity| {d_sub:.3e} (tol 1e-4); flow "
+        f"|d| median {f_med:.3e} (tol 5e-4), 99.9 % {f_999:.3e} (tol 2e-2), beyond 0.05 px "
+        f"{f_far:.2e} (tol 1e-3)")
+    if not (same_int and d_sub <= 1e-4 and f_med <= 5e-4 and f_999 <= 2e-2 and f_far <= 1e-3):
+        raise SystemExit("entry stereo: disparity or flow disagree between the card and the CPU")
+    disp1 = stereo.dense_disparity(gd[2], gd[3])
+    ms_disp = host_ms(lambda: stereo.dense_disparity(gd[0], gd[1]), 5)
+    ms_flow = host_ms(lambda: optical_flow.dense_flow(gd[0], gd[2]), 5)
+    ms_quad = host_ms(lambda: stereo.quad_temporal_matches(gd[0], gd[1], gd[2], gd[3], disp_d,
+                                                           disp1, flow_d), 5)
+    log(f"[entry stereo] ms a call on the card (1242x375, synchronised): dense_disparity "
+        f"(128 disparities) {ms_disp:.2f}, dense_flow (5 levels x 8 iterations) {ms_flow:.2f}, "
+        f"quad_temporal_matches (512 keypoints) {ms_quad:.2f}")
+    out.update(disparity_ms=ms_disp, flow_ms=ms_flow, quad_ms=ms_quad, flow_median=f_med,
+               flow_p999=f_999, disparity_max_abs=d_sub)
+
+    # tools/measure_quad_ab.py's configuration beside its QUAD_AB.json rows.
+    # Each row replays the JAX package's RANSAC / PnP hypotheses (seed 0,
+    # tools/quad_ab_draws/, recorded by tools/torch_quad_trace.py), so that it
+    # scores what QUAD_AB.json's row scored: with other draws a row's ATE is
+    # the draw's (the JAX package's default quad-on row: 0.21 to 2.29 m over
+    # seeds 0-4).  ATE < 0.5 m is gated where QUAD_AB.json meets it; the
+    # default quad-on row on the port's own draws is reported beside them.
+    D = DEFAULT_CONFIG
+    ab_cfg = dataclasses.replace(
+        D, camera=synth_camera_config(),
+        padding=dataclasses.replace(D.padding, n_static_max=1024, n_obj_pts_max=4096),
+        solver=dataclasses.replace(D.solver, ransac_iters=200, cam_lm_iters=60,
+                                   obj_lm_iters=100))
+    with open(os.path.join(REPO, "QUAD_AB.json")) as f:
+        ref = {(r["texture"], r["quad_gate"]): r for r in json.load(f) if "texture" in r}
+    ab = []
+    for tex in ("default", "distinct"):
+        troot = write_stereo_tree(os.path.join(ENTRY_DIR, f"ab_{tex}"), n_frames=n, texture=tex)
+        for quad, draws in ((False, "jax"), (True, "jax")) + (((True, "own"),)
+                                                             if tex == "default" else ()):
+            row = f"ab-{tex}-{'on' if quad else 'off'}"
+            sampler = (ReplaySampler(os.path.join(REPO, "tools", "quad_ab_draws", f"{row}.npz"))
+                       if draws == "jax" else None)
+            seq = StereoKittiSequence(troot, max_disp=64, quad_gate=quad, device=dev)
+            s = MultiMotSystem(ab_cfg, device=dev, sampler=sampler)
+            for i in range(len(seq)):
+                s.track_rgbd(seq.load_frame(i))
+            summ = s.summary()
+            r = ref[(tex, quad)]
+            log(f"[entry quad A/B] texture {tex}, quad {quad}, "
+                + (f"the JAX package's draws ({sampler.hits} replayed, {sampler.misses} "
+                   f"drawn afresh)" if sampler else "the port's own draws") + ": cam t-RPE "
+                f"{summ['cam_t_rpe_rel_mean']:.4f} (QUAD_AB.json {r['cam_t_rpe_rel_mean']:.4f}), "
+                f"ATE {summ['ego_ate_rmse_m']:.4f} m ({r['ego_ate_rmse_m']:.4f}), quad matches "
+                f"{seq.n_quad_matched} ({r['n_quad_matched']})")
+            poses = np.stack(s.map.camera_poses)
+            if not (np.all(np.isfinite(poses)) and np.isfinite(summ["ego_ate_rmse_m"])):
+                raise SystemExit(f"entry quad A/B {row}: non-finite trajectory")
+            if sampler and r["ego_ate_rmse_m"] < 0.5 and not summ["ego_ate_rmse_m"] < 0.5:
+                raise SystemExit(f"entry quad A/B {row} on the JAX package's draws: ATE "
+                                 f"{summ['ego_ate_rmse_m']} m, QUAD_AB.json "
+                                 f"{r['ego_ate_rmse_m']} m, bound 0.5 m")
+            ab.append(dict(row=row, draws=draws, cam_t_rpe=summ["cam_t_rpe_rel_mean"],
+                           ate_m=summ["ego_ate_rmse_m"], n_quad_matched=seq.n_quad_matched,
+                           replayed=sampler and sampler.hits, missed=sampler and sampler.misses))
+    out["quad_ab"] = ab
+    return out
+
+
+def serve_frames(fds, with_flow, dev):
+    """Phase 11(d): ``serve_connection`` in a thread over a socketpair at
+    DEFAULT_CONFIG on the card; returns its replies."""
+    import socket
+    import threading
+
+    from multimot_track_tpu_torch.io import stream
+
+    a, b = socket.socketpair()
+    box = {}
+
+    def server():
+        try:
+            box["sys"] = stream.serve_connection(b, device=dev)
+        except Exception as e:              # reported by the caller
+            box["error"] = e
+        finally:
+            b.close()
+
+    th = threading.Thread(target=server)
+    th.start()
+    replies = []
+    try:
+        for fd in fds:
+            stream.send_frame(a, np.clip(fd.gray, 0, 255).astype(np.uint8),
+                              np.clip(fd.depth_raw, 0, 65535).astype(np.uint16),
+                              flow=fd.flow.astype(np.float16) if with_flow else None,
+                              sem=fd.sem_mask.astype(np.uint8), frame=fd.index,
+                              timestamp=fd.timestamp)
+            if with_flow:
+                replies.append(stream.recv_result(a))
+        a.shutdown(socket.SHUT_WR)
+        if not with_flow:
+            replies = [stream.recv_result(a) for _ in fds]
+    finally:
+        a.close()
+        th.join(timeout=600)
+    if th.is_alive() or "error" in box:
+        raise SystemExit(f"entry server: the server thread failed: {box.get('error')!r}")
+    return replies
+
+
+def in_process_replies(fds, with_flow, dev):
+    """What the server should answer: the same frames, rebuilt as the
+    server rebuilds them, through ``track_rgbd``."""
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.io.frame import FrameData
+    from multimot_track_tpu_torch.io.kitti import lk_flow
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    s = MultiMotSystem(DEFAULT_CONFIG, device=dev)
+    grays = [np.clip(fd.gray, 0, 255).astype(np.uint8).astype(np.float32) for fd in fds]
+    out = []
+    for i, fd in enumerate(fds):
+        if with_flow:
+            flow = fd.flow.astype(np.float16).astype(np.float32)
+        elif i + 1 < len(fds):
+            flow = lk_flow(grays[i], grays[i + 1], dev)
+        else:
+            flow = np.zeros(fd.gray.shape + (2,), np.float32)
+        r = s.track_rgbd(FrameData(
+            index=fd.index, timestamp=fd.timestamp, gray=grays[i],
+            depth_raw=np.clip(fd.depth_raw, 0, 65535).astype(np.uint16).astype(np.float32),
+            flow=flow, sem_mask=fd.sem_mask.astype(np.uint8).astype(np.int32),
+            pose_gt=np.eye(4, dtype=np.float32), obj_ids_gt=np.zeros(0, np.int32),
+            obj_poses_gt=np.zeros((0, 4, 4), np.float32),
+            obj_bboxes_gt=np.zeros((0, 4), np.float32)))
+        out.append(r)
+    return out
+
+
+def phase_entry_tum_server(dev, frames, kitti_root, log_dir):
+    """Phase 11(d): the TUM CLI and the socket server."""
+    from multimot_track_tpu_torch.io import kitti
+    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM, write_tum_tree
+
+    n = TUM_N
+    root = write_tum_tree(os.path.join(ENTRY_DIR, "rgbd_dataset_freiburg1_junction"),
+                          frames[:n], bf=KITTI_SYNTH_CAM["bf"])
+    s, seq, summ, wall, k1, k2 = run_cli_logged([str(root), "--tum", "--discover-objects"],
+                                                os.path.join(log_dir, "entry_cli_tum.log"))
+    log(f"[entry tum] {n} frames: {1e3 * wall / n:.2f} ms/frame end to end, flows estimated "
+        f"{seq.n_flow_estimated}, camera {seq.camera_config()} (the TUM reader's own "
+        f"intrinsics, not the frames': accuracy is reported, not gated)")
+    check_cli_run("tum", s, summ, k1, k2, n)
+    if seq.n_flow_estimated != n - 1:
+        raise SystemExit(f"entry tum: {seq.n_flow_estimated} flows estimated for {n} frames")
+    out = dict(tum_ms_per_frame=1e3 * wall / n, tum_cam_t_rpe=summ["cam_t_rpe_rel_mean"])
+
+    fds = [kitti.KittiSequence(kitti_root, device=dev).load_frame(i) for i in range(SERVE_N)]
+    for with_flow in (True, False):
+        t0 = time.perf_counter()
+        replies = serve_frames(fds, with_flow, dev)
+        serve_s = time.perf_counter() - t0
+        ref = in_process_replies(fds, with_flow, dev)
+        worst = 0.0
+        for i, (rep, r) in enumerate(zip(replies, ref)):
+            if rep["frame"] != fds[i].index:
+                raise SystemExit(f"entry server: reply {i} is for frame {rep['frame']}")
+            if r is None:
+                continue
+            worst = max(worst, float(np.abs(np.reshape(rep["Tcw"], (4, 4)) - r.Tcw_cur).max()))
+            active = np.flatnonzero(np.asarray(r.objects.active)).tolist()
+            if [o["slot"] for o in rep["objects"]] != active:
+                raise SystemExit(f"entry server: frame {i} active slots differ")
+            for o in rep["objects"]:
+                worst = max(worst, float(np.abs(np.reshape(o["H"], (4, 4))
+                                                - r.objects.H[o["slot"]]).max()))
+        log(f"[entry server] {'with' if with_flow else 'without'} flow arrays: {len(replies)} "
+            f"replies in {serve_s:.1f} s; max |d| of Tcw and object motions against "
+            f"in-process track_rgbd {worst:.3e} (tol 1e-6); objects per reply "
+            f"{[len(rep['objects']) for rep in replies]}")
+        if worst > 1e-6:
+            raise SystemExit("entry server: replies differ from in-process tracking")
+        out[f"server_{'flow' if with_flow else 'noflow'}_max_abs"] = worst
+    return out
+
+
+def phase_entry(dev, frames, live_ms, log_dir):
+    """Phase 11: the sequence entry points on the card.  The trees and the
+    RGB-D run's results are written under build/scratch/entry/ and removed
+    afterwards; the CLI's own per-frame output goes to ``log_dir``."""
+    import shutil
+
+    try:
+        root, readers = phase_entry_readers(dev, frames)
+        n = len(frames)
+        s, seq, summ, wall, k1, k2 = run_cli_logged(
+            [root, "--frames", str(n), "--out", os.path.join(ENTRY_DIR, "rgbd_results")],
+            os.path.join(log_dir, "entry_cli_rgbd.log"))
+        log(f"[entry rgbd] cli.main on the {n}-frame tree, DEFAULT_CONFIG "
+            f"on the card: {1e3 * wall / n:.2f} ms/frame end to end (reading and prefetch "
+            f"included), track_rgbd {1e3 * summ['mean_frame_time_s']:.2f} ms/frame; phase 6 "
+            f"synchronous in-memory run of the same frames: "
+            f"{'not run' if live_ms is None else f'{live_ms:.2f} ms/frame'}")
+        check_cli_run("rgbd", s, summ, k1, k2, n, ate_max=0.5, rpe_max=0.05)
+        rgbd = dict(ms_per_frame=1e3 * wall / n, track_ms=1e3 * summ["mean_frame_time_s"],
+                    cam_t_rpe=summ["cam_t_rpe_rel_mean"], ate_m=summ["ego_ate_rmse_m"],
+                    k1=k1, k2=k2)
+        stereo_out = phase_entry_stereo(dev, log_dir)
+        rest = phase_entry_tum_server(dev, frames, root, log_dir)
+    finally:
+        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    return dict(readers=readers, rgbd=rgbd, stereo=stereo_out, **rest)
+
+
 def main(argv) -> int:
     import torch
 
@@ -1378,13 +1851,16 @@ def main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    log_dir = os.path.abspath(argv[argv.index("--logs") + 1]) if "--logs" in argv else LOG_DIR
     t0 = time.perf_counter()
-    builds = [(name, kernels.build) for name in KERNELS] + [(NATIVE, kernels.build_native)]
+    builds = ([(name, kernels.build) for name in KERNELS]
+              + [(name, kernels.build_native) for name in NATIVE])
     with ThreadPoolExecutor(len(builds)) as pool:   # one compiler per source, together
-        for name, _ in zip([b[0] for b in builds], pool.map(lambda b: b[1](b[0]), builds)):
-            log(f"[build] {name} built by {time.perf_counter() - t0:.1f} s")
-    log(f"[build] {NATIVE} (host C++, the exact graph-cut labeler): "
-        f"{(kernels.build_native(NATIVE).parent / 'build.log').read_text().splitlines()[-1]}")
+        futures = [(name, pool.submit(fn, name)) for name, fn in builds]
+        for name, fut in futures:
+            lib = fut.result()
+            log(f"[build] {name} built by {time.perf_counter() - t0:.1f} s "
+                f"({(lib.parent / 'build.log').read_text().splitlines()[-1]})")
     for name in KERNELS:
         kernels.load(name)
         for line in kernels.build_log(name).splitlines():
@@ -1392,6 +1868,10 @@ def main(argv) -> int:
                 log(f"[build] {name}: {line.strip()}")
     if "--k2-only" in argv:                 # phases 1, 2 and 5 alone, no result lines
         phase_match_kernel(dev)
+        return 0
+    if "--entry-only" in argv:              # phases 1, 2 and 11 alone, no result lines
+        frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
+        log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
         return 0
     k1 = phase_kernel_vs_plain(dev)
     if "--k1-only" in argv:                 # phases 1-3 alone, no result lines
@@ -1415,6 +1895,8 @@ def main(argv) -> int:
     discovery_live = phase_discovery_live(dev, frames)
     log(json.dumps({"bow": bow, "bow_live": bow_live, "discovery": discovery,
                     "discovery_live": discovery_live}))
+    entry = phase_entry(dev, frames, live["ms_per_frame"], log_dir)
+    log(json.dumps({"entry": entry}))
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{

@@ -12,14 +12,18 @@ csrc/flow_ba_lm.cu) and the projection-gated descriptor matcher
 
 Module layout mirrors the JAX package one to one:
   geometry/  SE(3) and pinhole camera math
-  io/        numpy copies of the host-side frame record and synthetic scenes
+  io/        the sequence readers (KITTI, stereo, TUM), PNG and
+             OpenCV-YAML without PIL or PyYAML, .flo, the socket server, and
+             numpy copies of the frame record and synthetic scenes
   ops/       wire decoders, patch ZNCC, the separable-weight image resize,
              descriptor matching (torch + CUDA kernel)
-  frontend/  FAST pyramid, ORB descriptors, static and dense-object sampling
+  frontend/  FAST pyramid, ORB descriptors, static and dense-object sampling,
+             stereo disparity and the quad gate, pyramidal LK flow
   solvers/   Horn alignment, RANSAC, PnP, flow-BA (torch + CUDA kernel)
   pipeline/  frame observations, pair tracker, batched/streaming drivers,
              keyframe store, live refinement, the live system
   eval/      RPE / segmentation / histogram metrics
+  cli.py     the command-line driver
   state.py   converts the JAX package's state to tensors and back
 
 Importing the package has no side effects: no jax, no device work, no

@@ -1,0 +1,205 @@
+"""Command-line driver — the ``rgbd_mmt`` executable's role
+(Examples/RGB-D/rgbd_tum.cc): load a sequence, run multi-motion tracking,
+print per-frame metrics, dump trajectories and results.
+
+  python -m multimot_track_tpu_torch.cli <sequence_dir> [--settings kitti03.yaml]
+      [--frames N] [--out DIR] [--cpu] [--stereo [--quad-stereo]] [--tum]
+
+Port of ``multimot_track_tpu.cli`` with the same flags.  Everything runs on
+the card unless ``--cpu`` is given; without a card and without ``--cpu``
+it raises.  Not ported yet: ``--mono`` / ``--euroc`` (the monocular tracker
+and the EuRoC reader, ROADMAP item 19) and ``--viz`` / ``traj.png`` (the
+overlay renderer, ROADMAP item 23): the first three raise, and ``--out``
+says that ``traj.png`` is not written.  ``--profile`` is parsed and unused,
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+MONO_TODO = "monocular tracking (--mono, --euroc) is not ported yet: ROADMAP item 19"
+VIZ_TODO = "the overlay renderer (--viz, traj.png) is not ported yet: ROADMAP item 23"
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="Multi-motion tracking on the card (PyTorch/CUDA)")
+    ap.add_argument("sequence", help="KITTI-format sequence directory")
+    ap.add_argument("--settings", help="OpenCV-YAML settings (e.g. kitti03.yaml)")
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--out", default=None, help="results output directory")
+    ap.add_argument("--viz", action="store_true", help="render overlays per frame")
+    ap.add_argument("--profile", action="store_true", help="print stage timing")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    ap.add_argument(
+        "--stereo", action="store_true",
+        help="sequence has image_2/image_3 stereo pairs instead of depth/",
+    )
+    ap.add_argument(
+        "--quad-stereo", action="store_true",
+        help="with --stereo: gate/overwrite flow correspondences with "
+             "quad-consistent (last-L/R, cur-L/R) descriptor matches "
+             "before the ego solve (ORBmatcher::SearchByQuad role)",
+    )
+    ap.add_argument(
+        "--mono", action="store_true",
+        help="monocular ego-only odometry from image_0/ grays (not ported yet)",
+    )
+    ap.add_argument(
+        "--no-loop-closing", action="store_true",
+        help="disable keyframe loop detection + pose-graph correction",
+    )
+    ap.add_argument(
+        "--no-keyframes", action="store_true",
+        help="disable the keyframe store (also disables loop closing/reloc)",
+    )
+    ap.add_argument("--keyframe-gap", type=int, default=5)
+    ap.add_argument(
+        "--no-local-map", action="store_true",
+        help="disable per-frame TrackLocalMap pose refinement against "
+             "the keyframe map points",
+    )
+    ap.add_argument(
+        "--no-estimate-flow", action="store_true",
+        help="do not estimate dense flow when .flo files are missing",
+    )
+    ap.add_argument(
+        "--discover-objects", action="store_true",
+        help="mask-free mode: synthesize instance masks from motion "
+             "segmentation instead of reading semantic/",
+    )
+    ap.add_argument(
+        "--euroc", action="store_true",
+        help="sequence is an EuRoC MAV download (not ported yet)",
+    )
+    ap.add_argument(
+        "--tum", action="store_true",
+        help="sequence is a TUM RGB-D download (rgb.txt/depth.txt/"
+             "groundtruth.txt); intrinsics auto-detected, flow estimated "
+             "on device (the reference's rgbd_tum driver cannot run these)",
+    )
+    return ap.parse_args(argv)
+
+
+def open_sequence(args, cfg, device):
+    """The sequence reader the flags ask for, and the config it implies."""
+    if args.tum:
+        from multimot_track_tpu_torch.io.tum import TumRGBDSequence
+
+        seq = TumRGBDSequence(args.sequence, device=device)
+        cfg = dataclasses.replace(cfg, camera=seq.camera_config())
+    elif args.stereo:
+        from multimot_track_tpu_torch.io.stereo_seq import StereoKittiSequence
+
+        seq = StereoKittiSequence(args.sequence, quad_gate=args.quad_stereo, device=device)
+    else:
+        from multimot_track_tpu_torch.io.kitti import KittiSequence
+
+        seq = KittiSequence(args.sequence, device=device)
+    if args.no_estimate_flow and hasattr(seq, "estimate_flow"):
+        seq.estimate_flow = False
+    return seq, cfg
+
+
+def run(argv=None):
+    """Parse ``argv``, track the sequence with the per-frame lines and the
+    ``summary:`` JSON on stdout, write results under ``--out``; returns
+    (system, sequence, summary) for callers that read the run further."""
+    args = parse_args(argv)
+    if args.mono or args.euroc:
+        raise NotImplementedError(MONO_TODO)
+    if args.viz:
+        raise NotImplementedError(VIZ_TODO)
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.io.yamlcfg import config_from_yaml
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    device = "cpu" if args.cpu else "cuda"
+    cfg = DEFAULT_CONFIG
+    if args.settings:
+        cfg = config_from_yaml(args.settings, cfg)
+    elif (pathlib.Path(args.sequence) / "kitti03.yaml").exists():
+        cfg = config_from_yaml(pathlib.Path(args.sequence) / "kitti03.yaml", cfg)
+    seq, cfg = open_sequence(args, cfg, device)
+    if args.no_local_map:
+        cfg = dataclasses.replace(
+            cfg, backend=dataclasses.replace(cfg.backend, track_local_map=False)
+        )
+    n = len(seq) if args.frames is None else min(args.frames, len(seq))
+    sys_ = MultiMotSystem(
+        cfg,
+        enable_keyframes=not args.no_keyframes,
+        keyframe_gap=args.keyframe_gap,
+        enable_loop_closing=not args.no_loop_closing,
+        discover_objects=args.discover_objects,
+        device=device,
+    )
+    out = pathlib.Path(args.out) if args.out else None
+    if out:
+        out.mkdir(parents=True, exist_ok=True)
+
+    # prefetch thread: frame i+1's disk load + wire packing + upload
+    # overlap frame i's solve (pipeline/system.run_sequence note)
+    def _prep(i):
+        fd = seq.load_frame(i)
+        return fd, sys_.upload(fd)
+
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_prep, 0)
+        for i in range(n):
+            fd, handles = fut.result()
+            if i + 1 < n:
+                fut = pool.submit(_prep, i + 1)
+            if fd.gray.shape != (cfg.camera.height, cfg.camera.width):
+                raise ValueError(
+                    f"frame {i} is {fd.gray.shape[1]}x{fd.gray.shape[0]} but the camera "
+                    f"config is {cfg.camera.width}x{cfg.camera.height}: give the sequence's "
+                    f"settings with --settings or a kitti03.yaml in its directory")
+            r = sys_.track_rgbd(fd, uploaded=handles)
+            if r is None:
+                print(f"frame {i}: initialised")
+                continue
+            ob = r.objects
+            active = np.asarray(ob.active)
+            print(
+                f"frame {i}: cam RPE t={float(r.cam_t_rpe_rel)*100:.4f}% "
+                f"R={float(r.cam_r_rpe_rel):.4f}deg/m "
+                f"inliers={int(r.n_static_inliers)}/{int(r.n_static)} "
+                f"objects={int(active.sum())} state={sys_.state}"
+            )
+            for slot in np.flatnonzero(active):
+                print(
+                    f"  obj label={slot+1}: speed {float(ob.speed_est[slot]):.1f}"
+                    f"/{float(ob.speed_gt[slot]):.1f} km/h  "
+                    f"RPE t={float(ob.t_rpe_rel[slot])*100:.2f}% "
+                    f"R={float(ob.r_rpe_rel[slot]):.4f}deg/m"
+                )
+
+    summary = sys_.summary()
+    if getattr(seq, "quad_gate", False):
+        summary["n_quad_matched"] = int(seq.n_quad_matched)
+    print("\nsummary:", json.dumps(summary, indent=2))
+    if out:
+        sys_.save_results(out)
+        print(f"traj.png not written: {VIZ_TODO}")
+        print(f"results written to {out}")
+    if hasattr(seq, "close"):
+        seq.close()
+    return sys_, seq, summary
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

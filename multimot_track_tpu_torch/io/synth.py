@@ -1,9 +1,13 @@
 """Synthetic sequence construction (test/dev fixtures).
 
 A numpy copy of the in-memory renderers of ``multimot_track_tpu.io.synth``
-(that package imports jax at import time; the disk-tree builders ``build``
-and ``write_stereo_tree`` are not copied).  tests/test_torch_geometry.py
-pins the rendered arrays to the original bit for bit.
+(that package imports jax at import time) and of its stereo-tree writer
+``write_stereo_tree``, which writes its PNGs through ``io/png.write_png``
+instead of PIL (the KITTI-sample rebuilder ``build`` is not copied), and
+two writers of its own, ``write_kitti_tree`` and ``write_tum_tree``, that
+put rendered frames on disk in the layouts the sequence readers take.
+tests/test_torch_geometry.py pins the rendered arrays and the stereo tree
+to the original bit for bit.
 
 ``make_multimover_frames`` renders a fully-synthetic multi-object scene
 (kitti_sample has ONE ground-truth mover; the reference's label-switch
@@ -595,6 +599,139 @@ def make_junction_frames(n_frames: int = 60, cam=None, n_concurrent: int = 8,
         box=(-40.0, 40.0, -20.0, v * n_frames + 95.0),
         texture=_TEXTURES[texture],
     )
+
+
+def write_stereo_tree(dst, n_frames: int = 14, cam=None,
+                      texture: str = "distinct"):
+    """Render a synthetic STEREO sequence (KITTI image_2/image_3 layout)
+    for the quad-stereo A/B: left + right views from a rigid baseline
+    b = bf/fx, ground-truth poses, left-view instance masks.  No flow/
+    depth files — the stereo loader computes block-matching disparity and
+    the pipeline estimates flow on device, which is exactly the regime
+    where the quad gate (descriptor-verified correspondences across all
+    four views, src/ORBmatcher.cc:1704-1842) can improve on estimated
+    flow."""
+    import pathlib
+
+    from multimot_track_tpu_torch.io.png import write_png
+
+    cam = dict(SYNTH_CAM) if cam is None else cam
+    b = cam["bf"] / cam["fx"]
+    v = 0.55
+    amp, period = 1.8, 40.0
+    positions = [
+        np.array([amp * np.sin(2 * np.pi * t / period), 0.0, v * t])
+        for t in range(n_frames)
+    ]
+    movers = [
+        Mover(
+            centre=lambda t: np.array([1.8, 0.25, 9.0 + 0.42 * t]),
+            half_w=1.0, half_h=0.75, seed=50,
+            panels=vee_panels((0.0, 0.0, -1.0), 1.0, 0.75), label=1,
+        ),
+        Mover(
+            centre=lambda t: np.array([-6.0 + 0.35 * t, 0.3, 16.0]),
+            half_w=0.9, half_h=0.7, seed=51,
+            axes=_facing_axes((0.0, 0.0, -1.0)), label=2,
+        ),
+    ]
+    poses = _path_poses(positions)
+    box = (-30.0, 30.0, -10.0, v * n_frames + 50.0)
+
+    dst = pathlib.Path(dst)
+    for sub in ("image_2", "image_3", "semantic"):
+        (dst / sub).mkdir(parents=True, exist_ok=True)
+    with open(dst / "pose_gt.txt", "w") as fpose, \
+            open(dst / "times.txt", "w") as ftime:
+        for t in range(n_frames):
+            Twc = poses[t]
+            Twc_r = Twc.copy()
+            Twc_r[:3, 3] = Twc[:3, 3] + Twc[:3, :3] @ np.array([b, 0.0, 0.0])
+            tex = _TEXTURES[texture]
+            left, _, label, _ = _render_frame(
+                cam, Twc, movers, t, box=box, texture=tex)
+            right, _, _, _ = _render_frame(
+                cam, Twc_r, movers, t, box=box, texture=tex)
+            write_png(dst / "image_2" / f"{t:06d}.png", left.astype(np.uint8))
+            write_png(dst / "image_3" / f"{t:06d}.png", right.astype(np.uint8))
+            np.savetxt(dst / "semantic" / f"{t:06d}.txt", label, fmt="%d")
+            G0 = np.linalg.inv(poses[0])
+            T = (G0 @ Twc).astype(np.float64)
+            fpose.write(
+                f"{t} " + " ".join(f"{x:.9f}" for x in T.reshape(-1)) + "\n"
+            )
+            ftime.write(f"{t * 0.1:.6e}\n")
+    return dst
+
+
+def _gray8(gray: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(gray), 0, 255).astype(np.uint8)
+
+
+def write_kitti_tree(dst, frames, flow: bool = True):
+    """Write rendered frames as a KITTI-format sequence directory (the
+    layout ``io/kitti.KittiSequence`` reads): ``image/`` as 8-bit RGB PNG
+    (the rounded gray in three equal channels), ``depth/`` as 16-bit PNG of
+    the rounded raw disparity*256, ``flow/`` as .flo (unless
+    ``flow=False``), ``semantic/`` as text masks, and ``pose_gt.txt`` /
+    ``times.txt``.  Not in the JAX package."""
+    import pathlib
+
+    from multimot_track_tpu_torch.io.flowio import write_flo
+    from multimot_track_tpu_torch.io.png import write_png
+
+    dst = pathlib.Path(dst)
+    for sub in ("image", "depth", "semantic") + (("flow",) if flow else ()):
+        (dst / sub).mkdir(parents=True, exist_ok=True)
+    with open(dst / "pose_gt.txt", "w") as fpose, open(dst / "times.txt", "w") as ftime:
+        for i, fd in enumerate(frames):
+            write_png(dst / "image" / f"{i:06d}.png", np.stack([_gray8(fd.gray)] * 3, -1))
+            write_png(dst / "depth" / f"{i:06d}.png",
+                      np.clip(np.round(fd.depth_raw), 0, 65535).astype(np.uint16))
+            if flow:
+                write_flo(dst / "flow" / f"{i:06d}.flo", fd.flow)
+            np.savetxt(dst / "semantic" / f"{i:06d}.txt", fd.sem_mask, fmt="%d")
+            T = np.asarray(fd.pose_gt, np.float64)
+            fpose.write(f"{i} " + " ".join(f"{x:.9f}" for x in T.reshape(-1)) + "\n")
+            ftime.write(f"{fd.timestamp:.6e}\n")
+    return dst
+
+
+def write_tum_tree(dst, frames, bf: float):
+    """Write rendered frames in the TUM RGB-D layout (``io/tum``): ``rgb/``
+    8-bit RGB PNG, ``depth/`` uint16 metric depth * 5000 (0 where unknown),
+    ``rgb.txt`` / ``depth.txt`` on clocks 7 ms apart, so that the reader
+    associates by nearest timestamp, and ``groundtruth.txt`` (quaternion
+    camera-to-world rows, 4 ms early).  ``bf``: the frames' own baseline *
+    fx, which turns their raw disparity into metric depth.  Not in the JAX
+    package."""
+    import pathlib
+
+    from scipy.spatial.transform import Rotation
+
+    from multimot_track_tpu_torch.io.png import write_png
+
+    dst = pathlib.Path(dst)
+    (dst / "rgb").mkdir(parents=True, exist_ok=True)
+    (dst / "depth").mkdir(parents=True, exist_ok=True)
+    rgb_rows, dep_rows, gt_rows = [], [], []
+    for i, fd in enumerate(frames):
+        t = 1305031102.0 + 0.1 * i
+        write_png(dst / "rgb" / f"{t:.6f}.png", np.stack([_gray8(fd.gray)] * 3, -1))
+        rgb_rows.append(f"{t:.6f} rgb/{t:.6f}.png")
+        raw = np.asarray(fd.depth_raw, np.float64)
+        z = np.where(raw > 0, bf / np.maximum(raw / 256.0, 1e-9), 0.0)
+        td = t + 0.007
+        write_png(dst / "depth" / f"{td:.6f}.png",
+                  np.clip(np.round(z * 5000.0), 0, 65535).astype(np.uint16))
+        dep_rows.append(f"{td:.6f} depth/{td:.6f}.png")
+        T = np.asarray(fd.pose_gt, np.float64)
+        q = Rotation.from_matrix(T[:3, :3]).as_quat()        # x y z w
+        gt_rows.append(f"{t - 0.004:.6f} " + " ".join(f"{v:.9f}" for v in (*T[:3, 3], *q)))
+    (dst / "rgb.txt").write_text("# rgb\n" + "\n".join(rgb_rows) + "\n")
+    (dst / "depth.txt").write_text("# depth\n" + "\n".join(dep_rows) + "\n")
+    (dst / "groundtruth.txt").write_text("# groundtruth\n" + "\n".join(gt_rows) + "\n")
+    return dst
 
 
 # ---------------------------------------------------------------------------

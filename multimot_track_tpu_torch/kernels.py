@@ -7,8 +7,9 @@ The build happens at first use, from the sources in the checkout, into
 covers the source and the flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing here runs at import time.
 
-The host C++ sources under ``native/`` (the exact graph-cut labeler) build
-the same way with the host compiler (``$CXX``, then ``g++``).
+The host C++ sources under ``native/`` (the exact graph-cut labeler, the
+PNG unfilter) build the same way with the host compiler (``$CXX``, then
+``g++``).
 """
 
 from __future__ import annotations

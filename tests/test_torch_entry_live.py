@@ -1,0 +1,186 @@
+"""The stereo sequence entry end to end: the port's ``run_sequence`` over
+its ``StereoKittiSequence(quad_gate=True)`` against the JAX package's, on a
+synthetic stereo tree (``write_stereo_tree``, 4 frames at the 640 x 384
+test camera, no depth/ and no flow/: disparity, LK flow and the quad gate
+run in the reader) at ``test_torch_tracker.small_config`` with every other
+``MultiMotSystem`` default (windows, keyframes every 5 frames, loop
+closing).  Both draw the same RANSAC hypotheses (``JaxKeySampler``).
+
+Tolerances: the raw trajectory (the device odometry chain) max |dT| <=
+1e-3, the slice gate's (measured 2.0e-4); the refined trajectory <= 3e-3
+(measured 1.7e-3); keyframes, object records, track IDs and quad matches
+identical.  Per frame, the object half (label slots seen, static, solved
+and active, their point counts) is identical and the solved slots'
+inlier counts agree to +-2.  Neither package makes a record on stereo
+input: about 15 % of a block-matched disparity map is zero (the
+left-right check, the left border), a zero disparity decodes to an
+infinite depth, and one object point landing there turns every label's
+mean depth into 0 x inf = NaN, so no slot passes the depth gate (ROADMAP
+Queue 3).  The disparity is bit for bit the JAX package's (8-bit input)
+and the estimated flow agrees to the bounds of tests/test_torch_stereo.py;
+the port's system on the JAX reader's frames ends within 1e-6 of its run on
+its own reader's frames (measured 7e-7), so the gap is the systems', not
+the readers'.  It starts at the first pair's ego solve: on identical
+frames, with identical hypotheses and inlier counts (131 of 291: the
+estimated flow is noisy, so points sit at the solver's gates), the two
+raw poses end 1.0e-4 apart (checked below).  Each
+TrackLocalMap refinement, given the port's inputs, agrees with the JAX
+package's ``local_map_refine`` to 1e-5 (checked below), and the one at
+frame 3, on 43 inliers, carries its input gap of 2e-4 to 1.7e-3.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimot_track_tpu import config as jconfig
+from multimot_track_tpu.io.stereo_seq import StereoKittiSequence as JStereoSeq
+from multimot_track_tpu.io.synth import synth_camera_config
+from multimot_track_tpu.pipeline import keyframes as jkeyframes
+from multimot_track_tpu.pipeline.system import MultiMotSystem as JSystem
+from multimot_track_tpu.pipeline.system import run_sequence as jrun_sequence
+from multimot_track_tpu_torch import config as tconfig
+from multimot_track_tpu_torch.io.stereo_seq import StereoKittiSequence as TStereoSeq
+from multimot_track_tpu_torch.io.synth import synth_camera_config as t_synth_cam
+from multimot_track_tpu_torch.io.synth import write_stereo_tree
+from multimot_track_tpu_torch.pipeline import live_refine
+from multimot_track_tpu_torch.pipeline.system import MultiMotSystem as TSystem
+from multimot_track_tpu_torch.pipeline.system import run_sequence as trun_sequence
+from test_torch_ransac import FoldInKeys, JaxKeySampler
+from test_torch_tracker import small_config
+
+torch.set_num_threads(1)
+
+T_TOL, REFINED_TOL = 1e-3, 3e-3
+JCFG = small_config(jconfig, synth_camera_config())
+TCFG = small_config(tconfig, t_synth_cam())
+
+
+OBJ_FIELDS = ("seen", "is_static", "active", "n_points", "n_inliers")
+
+
+def recording_objects(cls, into):
+    """``cls.track_rgbd`` that also appends each pair's object outputs
+    (numpy, per label slot) to ``into``."""
+    track = cls.track_rgbd
+
+    def track_rgbd(self, *a, **kw):
+        r = track(self, *a, **kw)
+        if r is not None:
+            into.append({f: np.asarray(getattr(r.objects, f)).reshape(-1) for f in OBJ_FIELDS})
+        return r
+
+    return track_rgbd
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both runs with each pair's object outputs; the port's local-map
+    refinements are recorded with their inputs and outputs."""
+    root = write_stereo_tree(tmp_path_factory.mktemp("stereo"), n_frames=4)
+    js = JStereoSeq(root, quad_gate=True)
+    j_objs, t_objs = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JSystem, "track_rgbd", recording_objects(JSystem, j_objs))
+        j = jrun_sequence(js, JCFG)
+    ts = TStereoSeq(root, quad_gate=True, device="cpu")
+    sampler = JaxKeySampler(FoldInKeys(0), TCFG.padding.k_obj_max,
+                            TCFG.solver.obj_ensemble_seeds)
+    calls = []
+    refine = live_refine.local_map_refine
+
+    def recording(*a, **kw):
+        out = refine(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(live_refine, "local_map_refine", recording)
+        mp.setattr(TSystem, "track_rgbd", recording_objects(TSystem, t_objs))
+        t = trun_sequence(ts, TCFG, device="cpu", sampler=sampler)
+    j.pair_objects, t.pair_objects = j_objs, t_objs
+    return j, js, t, ts, calls
+
+
+class Frames(list):
+    load_frame = list.__getitem__
+
+
+def poses(s, raw=False):
+    return np.stack(s.map.camera_poses_raw if raw else s.map.camera_poses)
+
+
+def test_the_gap_is_the_systems_not_the_readers(runs):
+    """The port's system on the JAX reader's frames ends where it ends on
+    its own reader's frames; against the JAX system on the same frames
+    the raw poses part at the first pair."""
+    j, js, t, _, _ = runs
+    fresh = JStereoSeq(js.root, quad_gate=True)   # keeps js's counters as the run left them
+    frames = Frames(fresh.load_frame(i) for i in range(4))
+    sampler = JaxKeySampler(FoldInKeys(0), TCFG.padding.k_obj_max,
+                            TCFG.solver.obj_ensemble_seeds)
+    tj = trun_sequence(frames, TCFG, device="cpu", sampler=sampler)
+    for raw in (False, True):
+        assert float(np.abs(poses(tj, raw) - poses(t, raw)).max()) <= 1e-5
+    first = float(np.abs(poses(tj, True)[1] - poses(j, True)[1]).max())
+    assert 1e-5 < first <= T_TOL, first
+
+
+def test_stereo_run_sequence_matches_jax(runs):
+    j, js, t, ts, _ = runs
+    assert len(t.map.camera_poses) == len(j.map.camera_poses) == 4
+    for raw, tol in ((True, T_TOL), (False, REFINED_TOL)):
+        assert float(np.abs(poses(t, raw) - poses(j, raw)).max()) <= tol, raw
+    assert [k.index for k in t.keyframes.frames] == [k.index for k in j.keyframes.frames]
+    rt, rj = t.map.obj_records, j.map.obj_records
+    assert [(r.frame, r.track_id, r.sem_label) for r in rt] == \
+           [(r.frame, r.track_id, r.sem_label) for r in rj]
+    for a, b in zip(rt, rj):
+        np.testing.assert_allclose(a.H, b.H, atol=REFINED_TOL)
+    assert ts.n_quad_matched == js.n_quad_matched > 0
+    assert ts.n_flow_estimated == js.n_flow_estimated == 3
+
+
+def test_stereo_object_half_matches_jax(runs):
+    """The object half of the stereo path, pair by pair: slots seen,
+    static, solved and active, point counts and inlier counts.  Objects
+    are seen and solved, and no slot is active in either package (the
+    NaN depth gate of the module docstring)."""
+    j, _, t, _, _ = runs
+    assert len(t.pair_objects) == len(j.pair_objects) == 3
+    for ot, oj in zip(t.pair_objects, j.pair_objects):
+        for f in ("seen", "is_static", "active", "n_points"):
+            np.testing.assert_array_equal(ot[f], oj[f], err_msg=f)
+        assert np.array_equal(ot["n_inliers"] > 0, oj["n_inliers"] > 0)
+        assert np.abs(ot["n_inliers"].astype(np.int64) - oj["n_inliers"]).max() <= 2
+        assert not ot["active"].any()
+    assert any((o["seen"] & (o["n_inliers"] > 0)).any() for o in t.pair_objects)
+    assert t.map.obj_records == [] and j.map.obj_records == []
+
+
+def test_local_map_refinements_match_jax(runs):
+    """Every TrackLocalMap refinement of the port's run, given its own
+    inputs, against the JAX package's function on the same inputs."""
+    *_, calls = runs
+    assert len(calls) == 2
+    for a, kw, (T, n_in, n_match) in calls:
+        ja = [jnp.asarray(x.numpy()) if torch.is_tensor(x) else x for x in a]
+        Tj, nj, mj = jkeyframes.local_map_refine(
+            *ja, **{k: v for k, v in kw.items() if k != "backend"})
+        np.testing.assert_allclose(T.numpy(), np.asarray(Tj), atol=1e-5)
+        assert (int(n_in), int(n_match)) == (int(nj), int(mj))
+
+
+def test_stereo_run_sequence_summary_matches_jax(runs):
+    """The summaries agree as the trajectories do: t-RPE is relative to the
+    0.55 m a frame of the scene, so 3e-3 of pose is 0.6 % of it."""
+    j, _, t, _, _ = runs
+    st, sj = t.summary(), j.summary()
+    assert st["n_frames"] == sj["n_frames"] == 4 and t.state == j.state == "OK"
+    assert st["n_obj_estimates"] == sj["n_obj_estimates"]
+    for k in ("cam_t_rpe_rel_mean", "cam_t_rpe_refined_mean"):
+        assert abs(st[k] - sj[k]) <= 0.01, (k, st[k], sj[k])
+    for k in ("ego_ate_rmse_m", "ego_ate_rmse_raw_m"):
+        assert abs(st[k] - sj[k]) <= REFINED_TOL, (k, st[k], sj[k])
+    assert t.lm_accepted_frames == [2, 3]

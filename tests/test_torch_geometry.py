@@ -215,3 +215,21 @@ def test_synth_copy_multimover_bit_identical():
 def test_synth_copy_junction_bit_identical():
     _frames_equal(tsynth.make_junction_frames(n_frames=2),
                   jsynth.make_junction_frames(n_frames=2))
+
+
+def test_stereo_tree_writer_copy_identical(tmp_path):
+    """Both packages' ``write_stereo_tree`` (PIL there, ``io/png`` here)
+    write the same decoded pixels, masks, poses and times."""
+    from PIL import Image
+
+    jroot = jsynth.write_stereo_tree(tmp_path / "jax", n_frames=2)
+    troot = tsynth.write_stereo_tree(tmp_path / "port", n_frames=2)
+    names = sorted(p.relative_to(jroot) for p in jroot.rglob("*") if p.is_file())
+    assert names == sorted(p.relative_to(troot) for p in troot.rglob("*") if p.is_file())
+    assert len(names) == 2 + 3 * 2
+    for name in names:
+        a, b = jroot / name, troot / name
+        if name.suffix == ".png":
+            np.testing.assert_array_equal(np.asarray(Image.open(b)), np.asarray(Image.open(a)))
+        else:
+            assert a.read_bytes() == b.read_bytes(), name
