@@ -136,9 +136,35 @@ Phases, in order; any failure exits non-zero before the result lines:
      ``track_rgbd`` to 1e-6.  The CLI's own output goes to
      entry_cli_*.log under ``--logs DIR`` (default
      build/scratch/smoke_logs/); ``--entry-only`` runs phases 1, 2 and 11.
-Then the loop figures' JSON line, the JSON lines of phases 9-10 and 11, one JSON
-line of kernel figures (K1's launches from the synchronous live run), the
-nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
+  12. monocular tracking: ``MonoTracker`` on the mono-junction-8 cell
+     (``make_junction_frames(43, cam=KITTI_SYNTH_CAM, texture="distinct",
+     times=range(0, 43, 6))``), every run on the JAX package's seed-0
+     hypotheses replayed (``tools/mono_draws/``, written by
+     ``tools/mono_draws.py record``).  (a) The 8 frames with the backend
+     on (``keyframe_gap=2``) and off: initialisation frame, LOST frames,
+     keyframes, TrackLocalMap accepts, each step's direction cosine and
+     scale ratio against the ground truth, ms per frame, K2 launches;
+     fails unless initialised at frame 1 with no LOST frame, every cosine
+     > 0.9 and K2 launched.  (a') The 15-frame shuttle (forward, then back
+     to the start) on the card, then on the CPU (one thread): fails unless
+     the card closes a loop and both runs have the same events (LOST,
+     relocalizations, keyframes, accepts, loops with their inliers, scales
+     within 1e-3) and poses within 1e-3; ``close_loop`` ms.  (b) The
+     shuttle through the plain matcher: the same events, poses within
+     1e-4; K2 against its plain version on the tracker's own last
+     tracked-mode match (1024 vs 1024, r = 18) and TrackLocalMap match (r =
+     12), exactly equal, with ms and bound.  The 8 frames on host-generator
+     draws (seed 0), reported.  (c) The CLI on the card: ``--mono`` over
+     the frames as a KITTI tree, ``--euroc`` over an EuRoC tree and ``--tum
+     --mono`` over a TUM tree (its intrinsics guessed), under
+     build/scratch/mono/ (removed afterwards): the summary, the
+     initialisation frame, ms per frame, K2; the trajectory file must hold
+     a finite pose per frame.  ``--mono-only`` runs phases 1, 2 and 12.
+Then the loop figures' JSON line, the JSON lines of phases 9-10, 11 and 12, one JSON
+line of kernel figures (K1's launches from the synchronous live run, K2's
+from it and, as ``mono_launches``, from phase 12's 8 frames with the
+backend on), the nvidia-smi line, and the final ``{"ok": true, "device":
+...}`` line.
 Imports nothing of JAX.
 """
 
@@ -1833,6 +1859,281 @@ def phase_entry(dev, frames, live_ms, log_dir):
     return dict(readers=readers, rgbd=rgbd, stereo=stereo_out, **rest)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: monocular tracking on the card
+
+MONO_TIMES = range(0, 43, 6)        # the monocular fixture: every 6th junction frame
+MONO_DRAWS = os.path.join(REPO, "tools", "mono_draws")     # tools/mono_draws.py record
+MONO_DIR = os.path.join(REPO, "build", "scratch", "mono")
+MONO_CPU_TOL = 1e-3                 # the card against the CPU on the same draws
+
+
+def mono_config():
+    import dataclasses
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG, CameraConfig
+    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM
+
+    return dataclasses.replace(DEFAULT_CONFIG, camera=CameraConfig(**KITTI_SYNTH_CAM))
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mono_draws(name: str):
+    return ReplaySampler(os.path.join(MONO_DRAWS, f"{name}.npz"))
+
+
+def run_mono_tracker(dev, grays, sampler, match_backend="auto", record=None, **kw):
+    """``MonoTracker`` over ``grays`` on ``dev``: its events, the pose each
+    frame returned and the final (loop-corrected) trajectory, ms per frame
+    (host clock, synchronised), ms per ``close_loop``, and the K1 / K2
+    launches of this run alone.  ``record`` receives the last projected
+    match of each radius (18: the tracked-mode match, 12: TrackLocalMap's,
+    against three keyframes by then) as its input tensors."""
+    import torch
+
+    from multimot_track_tpu_torch.ops import matching
+    from multimot_track_tpu_torch.pipeline.mono import MonoTracker
+
+    tr = MonoTracker(mono_config(), device=dev, sampler=sampler, match_backend=match_backend,
+                     **kw)
+    close_ms = []
+    if tr.keyframes is not None:
+        close = tr.keyframes.close_loop
+
+        def timed_close(*a, **k):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = close(*a, **k)
+            sync(dev)
+            close_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        tr.keyframes.close_loop = timed_close
+    auto = matching.match_projected_auto
+
+    def recording(*a, radius=15.0, **k):
+        if record is not None:
+            record[radius] = [x.clone() for x in a]
+        return auto(*a, radius=radius, **k)
+
+    matching.match_projected_auto = recording
+    threads = torch.get_num_threads()
+    if dev.type == "cpu":
+        # one thread, as the CPU tests and tools/mono_draws.py run: the CPU
+        # reductions split by threads round otherwise, and the tracker's
+        # RANSAC masks follow every rounding
+        torch.set_num_threads(1)
+    try:
+        reset_launches()
+        online, ms = [], []
+        for g in grays:
+            sync(dev)
+            t0 = time.perf_counter()
+            online.append(np.array(tr.track(g)))
+            sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        k1, k2 = read_launches()
+    finally:
+        matching.match_projected_auto = auto
+        torch.set_num_threads(threads)
+    return dict(init=tr.init_frame, lost=tr.lost_frames, reloc=tr.relocalized_frames,
+                lm=tr.lm_accepted_frames, kfs=[k.index for k in tr.keyframes.frames]
+                if tr.keyframes is not None else None,
+                loops=[(int(f), int(k), int(n), float(sc)) for f, k, n, sc in tr.loop_events],
+                online=np.stack(online), poses=np.stack(tr.poses), ms=ms, close_ms=close_ms,
+                k1=k1, k2=k2)
+
+
+def mono_steps(poses, frames):
+    """Per step: the cosine of the estimated and the true camera
+    displacement, and the estimated / true length."""
+    c = [np.linalg.inv(T)[:3, 3] for T in poses]
+    g = [f.pose_gt[:3, 3] for f in frames]
+    cos, ratio = [], []
+    for i in range(1, len(frames)):
+        de, dg = c[i] - c[i - 1], g[i] - g[i - 1]
+        cos.append(float(de @ dg / (np.linalg.norm(de) * np.linalg.norm(dg) + 1e-12)))
+        ratio.append(float(np.linalg.norm(de) / np.linalg.norm(dg)))
+    return cos, ratio
+
+
+def mono_summary(tag, r):
+    ms = r["ms"][1:] or r["ms"]
+    log(f"[mono {tag}] init frame {r['init']}, LOST {r['lost']}, relocalized {r['reloc']}, "
+        f"keyframes {r['kfs']}, TrackLocalMap accepts {r['lm']}, loops (frame, keyframe "
+        f"frame, inliers, scale) {r['loops']}; {np.mean(ms):.2f} ms/frame after the first "
+        f"(first {r['ms'][0]:.1f} ms), close_loop {[round(x, 2) for x in r['close_ms']]} ms; "
+        f"K1 {r['k1']}, K2 {r['k2']}")
+    return dict(init=r["init"], lost=r["lost"], reloc=r["reloc"], keyframes=r["kfs"],
+                lm_accepts=r["lm"], loops=r["loops"], ms_per_frame=float(np.mean(ms)),
+                first_frame_ms=r["ms"][0], close_loop_ms=r["close_ms"], k1_launches=r["k1"],
+                k2_launches=r["k2"])
+
+
+def same_run(a, b, tol):
+    """The events of two runs and their largest pose difference."""
+    events = all(a[k] == b[k] for k in ("init", "lost", "reloc", "kfs", "lm"))
+    events &= [l[:3] for l in a["loops"]] == [l[:3] for l in b["loops"]]
+    events &= all(abs(x[3] - y[3]) <= tol for x, y in zip(a["loops"], b["loops"]))
+    d = max(float(np.abs(a[k] - b[k]).max()) for k in ("online", "poses"))
+    return events, d
+
+
+def mono_profile(dev, grays):
+    """One tracked frame with the backend on under the profiler, after the
+    7 before it outside it (this also warms the mono path up for the timed
+    runs): host wall ms of the call, the device kernels it ran and their
+    summed device ms, and the device's idle share of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multimot_track_tpu_torch.pipeline.mono import MonoTracker
+
+    tr = MonoTracker(mono_config(), device=dev, sampler=mono_draws("shuttle"), keyframe_gap=2)
+    for g in grays[:-1]:
+        tr.track(g)
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.track(grays[-1])
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    log(f"[mono profile] frame {len(grays) - 1}, backend on: {wall_ms:.1f} ms (host clock), "
+        f"{len(kernels)} device kernels, {busy_ms:.2f} ms of device time, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}")
+    return dict(wall_ms=wall_ms, device_kernels=len(kernels), device_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms)
+
+
+def phase_mono(dev, log_dir):
+    """Monocular tracking on the card (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from multimot_track_tpu_torch.io.synth import (
+        KITTI_SYNTH_CAM, make_junction_frames, write_euroc_tree, write_kitti_tree,
+        write_tum_tree)
+    from multimot_track_tpu_torch.ops import matching
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+
+    t0 = time.perf_counter()
+    frames = make_junction_frames(43, cam=dict(KITTI_SYNTH_CAM), texture="distinct",
+                                  times=MONO_TIMES)
+    log(f"[mono] rendered {len(frames)} distinct-junction frames (t = {list(MONO_TIMES)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    grays = [f.gray for f in frames]
+    shuttle = grays + grays[-2::-1]
+    fig = {"profile": mono_profile(dev, grays)}
+
+    # (a) the 8 frames, backend on and off, on the JAX package's draws
+    for tag, draws, kw in (("backend on", "shuttle", dict(keyframe_gap=2)),
+                           ("backend off", "off", dict(enable_backend=False))):
+        r = run_mono_tracker(dev, grays, mono_draws(draws), **kw)
+        cos, ratio = mono_steps(r["poses"], frames)
+        f = mono_summary(tag, r)
+        log(f"[mono {tag}] step direction cosines {[round(c, 4) for c in cos]}, scale "
+            f"ratios (estimated / true) {[round(x, 5) for x in ratio]}")
+        f.update(step_cosines=cos, scale_ratios=ratio)
+        fig[tag] = f
+        if r["init"] != 1 or r["lost"] or min(cos) <= 0.9 or r["k2"] == 0:
+            raise SystemExit(f"mono {tag}: init {r['init']}, LOST {r['lost']}, cosines {cos}, "
+                             f"K2 {r['k2']}")
+        if not np.all(np.isfinite(r["poses"])):
+            raise SystemExit(f"mono {tag}: non-finite poses")
+
+    # (a') the shuttle on the card, then on the CPU, on the same draws
+    calls = {}
+    card = run_mono_tracker(dev, shuttle, mono_draws("shuttle"), record=calls, keyframe_gap=2)
+    fig["shuttle card"] = mono_summary("shuttle card", card)
+    cpu = run_mono_tracker(torch.device("cpu"), shuttle, mono_draws("shuttle"), keyframe_gap=2)
+    fig["shuttle cpu"] = mono_summary("shuttle cpu", cpu)
+    events, d = same_run(card, cpu, MONO_CPU_TOL)
+    c = np.stack([np.linalg.inv(T)[:3, 3] for T in card["poses"]])
+    back = float(np.linalg.norm(c[-1] - c[0]) / np.linalg.norm(c - c[0], axis=1).max())
+    log(f"[mono shuttle] card against CPU: events equal {events}, max |dPose| {d:.3e} "
+        f"(bound {MONO_CPU_TOL}); end-to-start distance {back:.4f} of the largest excursion")
+    fig["shuttle card vs cpu"] = dict(events_equal=events, max_dpose=d, end_to_start=back)
+    if not card["loops"] or not events or d > MONO_CPU_TOL or card["k2"] == 0:
+        raise SystemExit(f"mono shuttle: card loops {card['loops']}, CPU {cpu['loops']}, "
+                         f"events equal {events}, max |dPose| {d}")
+
+    # (b) the shuttle through the plain matcher, and K2 on the path's own calls
+    plain = run_mono_tracker(dev, shuttle, mono_draws("shuttle"), match_backend="torch",
+                             keyframe_gap=2)
+    events_p, d_p = same_run(card, plain, 1e-6)
+    log(f"[mono shuttle plain matcher] events equal {events_p}, max |dPose| against K2 "
+        f"{d_p:.3e} (bound {LIVE_T_ATOL}); K2 {plain['k2']}")
+    fig["shuttle plain"] = dict(events_equal=events_p, max_dpose=d_p, k2_launches=plain["k2"])
+    if not events_p or d_p > LIVE_T_ATOL or plain["k2"] != 0:
+        raise SystemExit("mono shuttle: the plain matcher's run differs from K2's")
+    k2_calls = []
+    for radius, name in ((18.0, "tracked-mode match"), (12.0, "TrackLocalMap")):
+        if radius not in calls:
+            raise SystemExit(f"mono shuttle: no {name} call was recorded")
+        args = calls[radius]
+        bk, sk, ik = match_projected_cuda(*args, radius=radius)
+        bp, sp, ip = matching.match_projected_plain(*args, radius=radius)
+        sync(dev)
+        n_diff = int((bk != bp).sum() + (sk != sp).sum() + (ik != ip).sum())
+        err = float(torch.maximum((bk - bp).abs().max(), (sk - sp).abs().max()))
+        ms_k = time_ms(lambda: match_projected_cuda(*args, radius=radius), rounds=5, reps=20)
+        ms_p = time_ms(lambda: matching.match_projected_plain(*args, radius=radius),
+                       rounds=5, reps=5)
+        bound_us, bound_by, n_pairs = k2_bound_us(args, (bk, sk, ik), radius)
+        shape = f"{args[0].shape[-2]} vs {args[3].shape[0]}, r = {radius:g}"
+        log(f"[mono K2] {name} ({shape}, {int(args[2].sum())} valid queries): {n_diff} "
+            f"differing outputs (must be 0) | kernel {ms_k:.4f} ms/call (wrapper, CUDA "
+            f"events), plain {ms_p:.4f} | bound {bound_us:.3f} us by {bound_by} "
+            f"({n_pairs} gated pairs)")
+        k2_calls.append(dict(call=name, shape=shape, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=bound_us / 1e3, bound_by=bound_by))
+        if n_diff:
+            raise SystemExit(f"mono: K2 disagrees with its plain version on the {name}")
+    fig["k2_calls"] = k2_calls
+
+    # the port's own host-generator draws (reported: the tracker's frame-2
+    # PnP depends on them, in the JAX package as well)
+    own = run_mono_tracker(dev, grays, HostSampler(0), keyframe_gap=2)
+    fig["host draws seed 0"] = mono_summary("backend on, host draws seed 0", own)
+    fig["host draws seed 0"]["step_cosines"] = mono_steps(own["poses"], frames)[0]
+
+    # (c) the CLI on the card: --mono over a KITTI tree, --euroc over an EuRoC tree
+    shutil.rmtree(MONO_DIR, ignore_errors=True)
+    kitti = write_kitti_tree(os.path.join(MONO_DIR, "kitti"), frames, flow=False)
+    (kitti / "kitti03.yaml").write_text(
+        "%YAML:1.0\n" + "".join(f"Camera.{k}: {float(v)}\n" for k, v in KITTI_SYNTH_CAM.items()))
+    euroc = write_euroc_tree(os.path.join(MONO_DIR, "euroc"), frames, KITTI_SYNTH_CAM)
+    # the TUM reader guesses its intrinsics from the directory name: a run, not an accuracy cell
+    tum = write_tum_tree(os.path.join(MONO_DIR, "rgbd_dataset_freiburg1_mono"), frames,
+                         bf=KITTI_SYNTH_CAM["bf"])
+    for tag, root, flags in (("--mono", kitti, ["--mono"]), ("--euroc", euroc, ["--euroc"]),
+                             ("--tum --mono", tum, ["--tum", "--mono"])):
+        out = os.path.join(MONO_DIR, "out" + "".join(flags))
+        tr, _, summ, secs, k1, k2 = run_cli_logged(
+            [str(root), *flags, "--out", out],
+            os.path.join(log_dir, "mono_cli" + "".join(flags) + ".log"))
+        traj = np.loadtxt(os.path.join(out, "mono_trajectory.txt"))
+        log(f"[mono cli {tag}] {summ}; initialised at frame {tr.init_frame}; "
+            f"{1e3 * secs / len(frames):.1f} ms/frame (host clock, frame loading included); "
+            f"K1 {k1}, K2 {k2}; trajectory {traj.shape}")
+        if traj.shape != (len(frames), 12) or not np.all(np.isfinite(traj)):
+            raise SystemExit(f"mono cli {tag}: trajectory {traj.shape}")
+        fig[f"cli {tag}"] = dict(summary=summ, init_frame=tr.init_frame,
+                                 ms_per_frame=1e3 * secs / len(frames), k2_launches=k2)
+    shutil.rmtree(MONO_DIR, ignore_errors=True)
+    return fig
+
+
 def main(argv) -> int:
     import torch
 
@@ -1869,6 +2170,9 @@ def main(argv) -> int:
     if "--k2-only" in argv:                 # phases 1, 2 and 5 alone, no result lines
         phase_match_kernel(dev)
         return 0
+    if "--mono-only" in argv:               # phases 1, 2 and 12 alone, no result lines
+        log(json.dumps({"mono": phase_mono(dev, log_dir)}, default=float))
+        return 0
     if "--entry-only" in argv:              # phases 1, 2 and 11 alone, no result lines
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
@@ -1897,6 +2201,8 @@ def main(argv) -> int:
                     "discovery_live": discovery_live}))
     entry = phase_entry(dev, frames, live["ms_per_frame"], log_dir)
     log(json.dumps({"entry": entry}))
+    mono = phase_mono(dev, log_dir)
+    log(json.dumps({"mono": mono}, default=float))
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{
@@ -1917,7 +2223,8 @@ def main(argv) -> int:
         "source": "multimot_track_tpu_torch/csrc/match_projected.cu",
         "replaces": "multimot_track_tpu/ops/pallas_match.py:63",
         "launches": live["k2_launches"],
-        "max_abs_err": max(f["max_abs_err"] for f in k2),
+        "mono_launches": mono["backend on"]["k2_launches"],
+        "max_abs_err": max(f["max_abs_err"] for f in k2 + mono["k2_calls"]),
         "ms": lm["ms"],
         "plain_ms": lm["plain_ms"],
         "bound_ms": lm["bound_ms"],

@@ -4,14 +4,15 @@ print per-frame metrics, dump trajectories and results.
 
   python -m multimot_track_tpu_torch.cli <sequence_dir> [--settings kitti03.yaml]
       [--frames N] [--out DIR] [--cpu] [--stereo [--quad-stereo]] [--tum]
+      [--mono] [--euroc]
 
 Port of ``multimot_track_tpu.cli`` with the same flags.  Everything runs on
 the card unless ``--cpu`` is given; without a card and without ``--cpu``
-it raises.  Not ported yet: ``--mono`` / ``--euroc`` (the monocular tracker
-and the EuRoC reader, ROADMAP item 19) and ``--viz`` / ``traj.png`` (the
-overlay renderer, ROADMAP item 23): the first three raise, and ``--out``
-says that ``traj.png`` is not written.  ``--profile`` is parsed and unused,
-as in the JAX package.
+it raises.  ``--mono`` (over a KITTI tree, or a TUM one with ``--tum``)
+and ``--euroc`` run the monocular tracker (``run_mono``).  Not ported yet:
+``--viz`` / ``traj.png`` (the overlay renderer, ROADMAP item 23): ``--viz``
+raises, and ``--out`` says that ``traj.png`` is not written.
+``--profile`` is parsed and unused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-MONO_TODO = "monocular tracking (--mono, --euroc) is not ported yet: ROADMAP item 19"
 VIZ_TODO = "the overlay renderer (--viz, traj.png) is not ported yet: ROADMAP item 23"
 
 
@@ -50,7 +50,8 @@ def parse_args(argv=None):
     )
     ap.add_argument(
         "--mono", action="store_true",
-        help="monocular ego-only odometry from image_0/ grays (not ported yet)",
+        help="monocular ego-only odometry from image_0/ grays "
+             "(mono_kitti driver role; up-to-scale trajectory + Sim3 ATE)",
     )
     ap.add_argument(
         "--no-loop-closing", action="store_true",
@@ -77,7 +78,9 @@ def parse_args(argv=None):
     )
     ap.add_argument(
         "--euroc", action="store_true",
-        help="sequence is an EuRoC MAV download (not ported yet)",
+        help="sequence is an EuRoC MAV download (mav0/cam0 + sensor.yaml); "
+             "implies --mono; intrinsics+distortion from the dataset's own "
+             "metadata (mono_euroc driver role)",
     )
     ap.add_argument(
         "--tum", action="store_true",
@@ -113,8 +116,6 @@ def run(argv=None):
     ``summary:`` JSON on stdout, write results under ``--out``; returns
     (system, sequence, summary) for callers that read the run further."""
     args = parse_args(argv)
-    if args.mono or args.euroc:
-        raise NotImplementedError(MONO_TODO)
     if args.viz:
         raise NotImplementedError(VIZ_TODO)
 
@@ -128,6 +129,8 @@ def run(argv=None):
         cfg = config_from_yaml(args.settings, cfg)
     elif (pathlib.Path(args.sequence) / "kitti03.yaml").exists():
         cfg = config_from_yaml(pathlib.Path(args.sequence) / "kitti03.yaml", cfg)
+    if args.mono or args.euroc:
+        return run_mono(args, cfg, device)
     seq, cfg = open_sequence(args, cfg, device)
     if args.no_local_map:
         cfg = dataclasses.replace(
@@ -194,6 +197,60 @@ def run(argv=None):
     if hasattr(seq, "close"):
         seq.close()
     return sys_, seq, summary
+
+
+def run_mono(args, cfg, device):
+    """Monocular ego-only drive (Examples/Monocular/mono_kitti.cc role):
+    gray frames -> ``MonoTracker`` -> up-to-scale trajectory, with the
+    Sim3-aligned ATE against the sequence's poses when it has them.
+    Prints a ``[init]`` / ``[track]`` line per frame and the summary, and
+    writes ``mono_trajectory.txt`` (3x4 camera-to-world rows) under
+    ``--out``; returns (tracker, sequence, summary)."""
+    import torch
+
+    from multimot_track_tpu_torch.eval import metrics
+    from multimot_track_tpu_torch.pipeline.mono import MonoTracker
+
+    if args.euroc:
+        from multimot_track_tpu_torch.io.euroc import EurocSequence
+
+        seq = EurocSequence(args.sequence)
+        cfg = dataclasses.replace(cfg, camera=seq.camera_config())
+    else:
+        seq, cfg = open_sequence(args, cfg, device)
+        if hasattr(seq, "estimate_flow"):
+            seq.estimate_flow = False     # the tracker reads the gray image only
+    n = len(seq) if args.frames is None else min(args.frames, len(seq))
+    tracker = MonoTracker(cfg, device=device)
+    gt_list = []
+    for i in range(n):
+        fd = seq.load_frame(i)
+        Tcw = tracker.track(np.asarray(fd.gray, np.float32))
+        if fd.pose_gt is not None:
+            gt_list.append(np.asarray(fd.pose_gt, np.float32))
+        t = np.linalg.inv(Tcw)[:3, 3]
+        state = "init" if not tracker.initialized else "track"
+        print(f"frame {i}: [{state}] twc=({t[0]:.3f}, {t[1]:.3f}, {t[2]:.3f})")
+
+    Twc_est = np.stack([np.linalg.inv(T) for T in tracker.poses])
+    if args.out:
+        out = pathlib.Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out / "mono_trajectory.txt", "w") as f:
+            for T in Twc_est:
+                f.write(" ".join(f"{v:.6f}" for v in T[:3].reshape(-1)) + "\n")
+        print(f"trajectory written to {out / 'mono_trajectory.txt'}")
+
+    summary = {"n_frames": n, "initialized": tracker.initialized}
+    if len(gt_list) == len(tracker.poses) and tracker.initialized:
+        rmse, _ = metrics.absolute_trajectory_error(
+            torch.from_numpy(Twc_est.astype(np.float32)), torch.from_numpy(np.stack(gt_list)),
+            with_scale=True)
+        summary["ego_ate_sim3_rmse_m"] = float(rmse)
+    print("\nsummary:", json.dumps(summary, indent=2))
+    if hasattr(seq, "close"):
+        seq.close()
+    return tracker, seq, summary
 
 
 def main(argv=None) -> int:

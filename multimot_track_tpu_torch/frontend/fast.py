@@ -11,7 +11,17 @@ What had to be written out to match ``jax.lax.top_k`` and XLA:
   wrapped taps land is zeroed afterwards in both.
 * ``reduce_window(max)`` pads with -inf, and so does ``max_pool2d``.
 * The pyramid resize is ``ops.resize.resize_linear`` (JAX's antialiased
-  triangle filter), not ``interpolate``.
+  triangle filter), not ``interpolate``.  ``accumulate=torch.float64``
+  makes the card and the CPU detect the same corners (their float32
+  weights and products part by an ulp on a fifth of the pixels, and
+  FAST's NMS and top-k then keep other corners of a near tie); the
+  default float32 is the rounding the RGB-D paths' parity tests hold to
+  the JAX package.
+* The arc sums' prefix sums (``_xla_cumsum``).  XLA:CPU evaluates the
+  24-long ``jnp.cumsum`` of the circle as a sequential scan of the first
+  16 taps and another of the rest, plus the first block's total; on float
+  images (a rendered gray) another order moves scores by an ulp and
+  changes which of two neighbours survives the NMS.
 """
 
 from __future__ import annotations
@@ -47,6 +57,27 @@ def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+_SCAN_BLOCK = 16   # XLA:CPU's block length of a long cumulative sum
+
+
+def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums over axis 0 in XLA:CPU's order: a sequential
+    scan within each block of 16, then the previous block's last prefix
+    added (checked bit for bit against ``jnp.cumsum`` of 24 rows).  Written
+    as single adds, so the card and the CPU give the same bits."""
+    out = []
+    for b in range(0, x.shape[0], _SCAN_BLOCK):
+        acc = x[b]
+        blk = [acc]
+        for i in range(b + 1, min(b + _SCAN_BLOCK, x.shape[0])):
+            acc = acc + x[i]
+            blk.append(acc)
+        if out:
+            blk = [v + out[-1] for v in blk]
+        out.extend(blk)
+    return torch.stack(out, 0)
+
+
 def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
     """FAST-9 corner response for every pixel of (B, H, W) float images:
     max over (bright, dark) of the summed |tap - centre| - t over the best
@@ -60,9 +91,9 @@ def fast_score_map(img: torch.Tensor, threshold: float) -> torch.Tensor:
     def arc_score(flags, mag):
         flags2 = torch.cat([flags, flags[: _ARC - 1]], 0).to(torch.float32)
         mag2 = torch.cat([mag, mag[: _ARC - 1]], 0)
-        cs = torch.cat([torch.zeros_like(flags2[:1]), torch.cumsum(flags2, 0)], 0)
+        cs = torch.cat([torch.zeros_like(flags2[:1]), _xla_cumsum(flags2)], 0)
         ok = (cs[_ARC:] - cs[:-_ARC]) >= _ARC - 0.5
-        csm = torch.cat([torch.zeros_like(mag2[:1]), torch.cumsum(mag2, 0)], 0)
+        csm = torch.cat([torch.zeros_like(mag2[:1]), _xla_cumsum(mag2)], 0)
         wmag = csm[_ARC:] - csm[:-_ARC]
         return torch.where(ok, wmag, torch.zeros_like(wmag)).amax(0)
 
@@ -117,17 +148,19 @@ def detect_pyramid(
     n_total: int = 4000,
     cell: int = 16,
     per_cell: int = 2,
+    accumulate: torch.dtype = torch.float32,
 ) -> Keypoints:
     """Multi-scale FAST with uniform spatial distribution on (B, H, W)
     images; strong corners (>= threshold) are biased by +1e6 so they win
-    the global top-k over weak (>= min_threshold) ones."""
+    the global top-k over weak (>= min_threshold) ones.  ``accumulate``:
+    the pyramid resize's accumulation type."""
     B, H, W = img.shape
     quota = _level_quotas(n_levels, scale_factor, n_total)
     all_uv, all_s, all_l, all_v = [], [], [], []
     for lvl in range(n_levels):
         scale = scale_factor ** lvl
         Hl, Wl = max(int(round(H / scale)), 16), max(int(round(W / scale)), 16)
-        im_l = img if lvl == 0 else resize_linear(img, (B, Hl, Wl))
+        im_l = img if lvl == 0 else resize_linear(img, (B, Hl, Wl), accumulate=accumulate)
         score = nms3x3(fast_score_map(im_l, min_threshold))
         strong = fast_score_map(im_l, threshold) > 0
         biased = torch.where(strong & (score > 0), score + 1e6, score)

@@ -1,7 +1,7 @@
 """Pinhole camera projection / unprojection on batched torch tensors.
 
-Port of ``multimot_track_tpu.geometry.camera`` (the functions the pair
-path and the window tracks use; undistortion is not ported yet).
+Port of ``multimot_track_tpu.geometry.camera``, with the Brown-Conrady
+lens model the monocular frontend undistorts its keypoints with.
 """
 
 from __future__ import annotations
@@ -73,3 +73,31 @@ def nearest_sample(img: torch.Tensor, uv: torch.Tensor) -> Tuple[torch.Tensor, t
     v = torch.round(uv[..., 1]).to(torch.int64)
     inb = (u > 0) & (u < W) & (v > 0) & (v < H)
     return gather_pixels(img, v.clamp(0, H - 1), u.clamp(0, W - 1)), inb
+
+
+def distort_normalized(xy: torch.Tensor, k1, k2, p1, p2, k3=0.0) -> torch.Tensor:
+    """Apply Brown-Conrady distortion to normalized coords (..., 2)."""
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], -1)
+
+
+def undistort_points(uv: torch.Tensor, fx, fy, cx, cy, k1, k2, p1, p2, k3=0.0,
+                     iters: int = 8) -> torch.Tensor:
+    """Invert Brown-Conrady distortion on pixel keypoints (..., 2): normalize,
+    iterate x <- (xd - dt(x)) / radial(x) a fixed ``iters`` times (OpenCV's
+    compensation loop, as the reference's Frame::UndistortKeyPoints runs it
+    through cv::undistortPoints), re-project with K."""
+    xd = torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], -1)
+    x = xd
+    for _ in range(iters):
+        xx, yy = x[..., 0], x[..., 1]
+        r2 = xx * xx + yy * yy
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dtx = 2.0 * p1 * xx * yy + p2 * (r2 + 2.0 * xx * xx)
+        dty = p1 * (r2 + 2.0 * yy * yy) + 2.0 * p2 * xx * yy
+        x = torch.stack([(xd[..., 0] - dtx) / radial, (xd[..., 1] - dty) / radial], -1)
+    return torch.stack([x[..., 0] * fx + cx, x[..., 1] * fy + cy], -1)

@@ -244,7 +244,7 @@ def make_multimover_frames(movers=None, n_frames: int = 8, cam=None,
                          box=False)
 
 
-def _build_frames(cam, Twc_at, movers, n_frames, box: bool, texture=None):
+def _build_frames(cam, Twc_at, movers, n_frames, box: bool, texture=None, times=None):
     """Shared renderer loop: analytic frames with exact depth / dense
     forward flow / instance masks / GT ego + camera-frame object poses.
 
@@ -254,23 +254,30 @@ def _build_frames(cam, Twc_at, movers, n_frames, box: bool, texture=None):
     world-frame motion comparisons (H vs H_gt) are conjugated by the
     first pose's rotation: a circuit starting with a 90-deg heading
     rotates every GT object translation by 90 deg relative to the
-    estimate.  Rendering still uses the generator's raw world."""
+    estimate.  Rendering still uses the generator's raw world.
+
+    ``times``: the generator times to render (default ``range(n_frames)``);
+    frame k is time ``times[k]``, its flow runs to ``times[k + 1]`` and the
+    world is anchored at ``times[0]``."""
     from multimot_track_tpu_torch.io.frame import FrameData
 
     W, H = cam["width"], cam["height"]
     fx, fy, cx, cy, bf = cam["fx"], cam["fy"], cam["cx"], cam["cy"], cam["bf"]
+    times = list(range(n_frames)) if times is None else list(times)
     rendered = [
         _render_frame(cam, Twc_at(t), movers, t, box=box, texture=texture)
-        for t in range(n_frames)
+        for t in times
     ]
-    G0 = np.linalg.inv(Twc_at(0))      # gt-world -> frame-0-anchored world
+    G0 = np.linalg.inv(Twc_at(times[0]))   # gt-world -> frame-0-anchored world
     frames = []
-    for t in range(n_frames):
-        gray, depth_m, label, (a_loc, b_loc) = rendered[t]
+    for k_frame, t in enumerate(times):
+        gray, depth_m, label, (a_loc, b_loc) = rendered[k_frame]
         Twc = Twc_at(t)
-        # dense forward flow t -> t+1 from the exact surface correspondence
+        # dense forward flow to the next rendered time from the exact
+        # surface correspondence
         flow = np.zeros((H, W, 2), np.float32)
-        if t + 1 < n_frames:
+        if k_frame + 1 < len(times):
+            t1 = times[k_frame + 1]
             us, vs = np.meshgrid(np.arange(W), np.arange(H))
             d_cam = np.stack(
                 [(us - cx) / fx, (vs - cy) / fy, np.ones_like(us, np.float64)], -1
@@ -283,9 +290,9 @@ def _build_frames(cam, Twc_at, movers, n_frames, box: bool, texture=None):
                 if not mv.alive(t):
                     continue
                 k = mv.label if mv.label is not None else k
-                step = mv.centre(t + 1) - mv.centre(t)   # pure translation
+                step = mv.centre(t1) - mv.centre(t)   # pure translation
                 X_w1 = np.where((label == k)[..., None], X_w + step, X_w1)
-            Twc1 = Twc_at(t + 1)
+            Twc1 = Twc_at(t1)
             Tcw1 = np.linalg.inv(Twc1)
             X_c1 = X_w1 @ Tcw1[:3, :3].T + Tcw1[:3, 3]
             u1 = fx * X_c1[..., 0] / X_c1[..., 2] + cx
@@ -308,7 +315,7 @@ def _build_frames(cam, Twc_at, movers, n_frames, box: bool, texture=None):
             bbs.append([xs_k.min(), ys_k.min(), xs_k.max(), ys_k.max()])
         frames.append(
             FrameData(
-                index=t,
+                index=k_frame,
                 gray=gray.astype(np.float32),
                 depth_raw=(bf * 256.0 / np.maximum(depth_m, 0.5)).astype(np.float32),
                 flow=flow,
@@ -534,7 +541,7 @@ def make_avenue_frames(n_frames: int = 240, cam=None,
 
 
 def make_junction_frames(n_frames: int = 60, cam=None, n_concurrent: int = 8,
-                         texture: str = "default"):
+                         texture: str = "default", times=None):
     """Dense-traffic junction approach: ``n_concurrent`` movers with
     DISTINCT labels all alive simultaneously for (nearly) the whole scene
     — the k_obj_solve stress fixture.  The reference's association tables
@@ -545,7 +552,8 @@ def make_junction_frames(n_frames: int = 60, cam=None, n_concurrent: int = 8,
 
     Ego creeps forward at 0.45 m/s toward a junction with a lead vehicle,
     two oncoming cars and four crossers at staggered depth stations, all
-    in view together."""
+    in view together.  ``times`` renders only those of the ``n_frames``
+    times (``range(0, 43, 6)``: the monocular fixture, 2.7 m apart)."""
     cam = dict(KITTI_SYNTH_CAM) if cam is None else cam
     v = 0.45
     positions = [np.array([0.0, 0.0, v * t]) for t in range(n_frames)]
@@ -597,7 +605,7 @@ def make_junction_frames(n_frames: int = 60, cam=None, n_concurrent: int = 8,
     return _build_frames(
         cam, lambda t: poses[t], movers, n_frames,
         box=(-40.0, 40.0, -20.0, v * n_frames + 95.0),
-        texture=_TEXTURES[texture],
+        texture=_TEXTURES[texture], times=times,
     )
 
 
@@ -731,6 +739,61 @@ def write_tum_tree(dst, frames, bf: float):
     (dst / "rgb.txt").write_text("# rgb\n" + "\n".join(rgb_rows) + "\n")
     (dst / "depth.txt").write_text("# depth\n" + "\n".join(dep_rows) + "\n")
     (dst / "groundtruth.txt").write_text("# groundtruth\n" + "\n".join(gt_rows) + "\n")
+    return dst
+
+
+# a body <- camera extrinsic shaped like EuRoC's cam0 (axes permuted, a few
+# centimetres of lever arm)
+EUROC_T_BS = np.asarray([[0.0, -1.0, 0.0, -0.0216],
+                         [1.0, 0.0, 0.0, -0.0647],
+                         [0.0, 0.0, 1.0, 0.0098],
+                         [0.0, 0.0, 0.0, 1.0]])
+
+
+def write_euroc_tree(dst, frames, cam, distortion=(-2e-3, 5e-4, 1e-4, -1e-4),
+                     T_BS=EUROC_T_BS):
+    """Write rendered frames in the EuRoC ASL layout (``io/euroc``):
+    ``mav0/cam0/data/<ns>.png`` 8-bit gray, ``data.csv``, a ``sensor.yaml``
+    with ``cam``'s intrinsics, the radial-tangential ``distortion`` (the
+    frames themselves are pinhole renders, so keep it small) and ``T_BS``,
+    and ``state_groundtruth_estimate0/data.csv``: body poses T_WB = Twc
+    T_BS^-1 as position + quaternion (w x y z) rows 1 ms after each frame,
+    with zero velocities and biases.  Not in the JAX package."""
+    import pathlib
+
+    from scipy.spatial.transform import Rotation
+
+    from multimot_track_tpu_torch.io.png import write_png
+
+    dst = pathlib.Path(dst)
+    cam_dir = dst / "mav0" / "cam0"
+    (cam_dir / "data").mkdir(parents=True, exist_ok=True)
+    gt_dir = dst / "mav0" / "state_groundtruth_estimate0"
+    gt_dir.mkdir(parents=True, exist_ok=True)
+    T_BS = np.asarray(T_BS, np.float64)
+    rows, gt_rows = [], []
+    for i, fd in enumerate(frames):
+        ns = 1403636579763555584 + 50_000_000 * i
+        write_png(cam_dir / "data" / f"{ns}.png", _gray8(fd.gray))
+        rows.append(f"{ns},{ns}.png")
+        T_WB = np.asarray(fd.pose_gt, np.float64) @ np.linalg.inv(T_BS)
+        x, y, z, w = Rotation.from_matrix(T_WB[:3, :3]).as_quat()
+        gt_rows.append(f"{ns + 1_000_000}," + ",".join(
+            f"{v:.9f}" for v in (*T_WB[:3, 3], w, x, y, z, *([0.0] * 9))))
+    (cam_dir / "data.csv").write_text("#timestamp [ns],filename\n" + "\n".join(rows) + "\n")
+    (gt_dir / "data.csv").write_text(
+        "#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], q_RS_w [], q_RS_x [], "
+        "q_RS_y [], q_RS_z [], v_RS_R_x, v_RS_R_y, v_RS_R_z, b_w_RS_S_x, b_w_RS_S_y, "
+        "b_w_RS_S_z, b_a_RS_S_x, b_a_RS_S_y, b_a_RS_S_z\n" + "\n".join(gt_rows) + "\n")
+    data = ", ".join(f"{v:.6f}" for v in T_BS.reshape(-1))
+    (cam_dir / "sensor.yaml").write_text(
+        "sensor_type: camera\ncomment: synthetic render\n"
+        f"T_BS:\n  cols: 4\n  rows: 4\n  data: [{data}]\n"
+        f"rate_hz: 20\nresolution: [{cam['width']}, {cam['height']}]\n"
+        "camera_model: pinhole\n"
+        f"intrinsics: [{cam['fx']}, {cam['fy']}, {cam['cx']}, {cam['cy']}]\n"
+        "distortion_model: radial-tangential\n"
+        f"distortion_coefficients: [{', '.join(str(float(v)) for v in distortion)}]\n")
     return dst
 
 

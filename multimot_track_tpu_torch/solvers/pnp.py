@@ -35,7 +35,9 @@ def dlt_pose(Xw: torch.Tensor, uv: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor
     r1 = torch.cat([Xh, z, -x[..., None] * Xh], -1)
     r2 = torch.cat([z, Xh, -y[..., None] * Xh], -1)
     A = torch.cat([r1, r2], -2)                                        # (..., 2n, 12)
-    Vh = torch.linalg.svd(A, full_matrices=True)[2]
+    # the nullspace in float64 (of the float32 rows): a float32 SVD of these
+    # systems is an order of magnitude less accurate than the JAX package's
+    Vh = torch.linalg.svd(A.double(), full_matrices=True)[2].to(A.dtype)
     P = Vh[..., -1, :].reshape(Vh.shape[:-2] + (3, 4))
     M = P[..., :3]
     scale = torch.pow(torch.abs(torch.linalg.det(M)) + 1e-20, 1.0 / 3.0)

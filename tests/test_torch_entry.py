@@ -6,7 +6,9 @@ sequence modules running without jax, PIL or PyYAML.
   --quad-stereo --discover-objects`` (tests/test_cli.py's images-only
   stereo tree) and ``--tum``: exit 0, the per-frame lines, and the JAX
   CLI's summary keys (plus ``n_quad_matched`` under the quad gate);
-* ``--mono``, ``--euroc`` and ``--viz`` raise, naming their ROADMAP items;
+* ``--viz`` raises, naming its ROADMAP item; ``--mono`` and ``--euroc``
+  run and write their trajectory (tests/test_torch_entry_mono.py holds
+  them to the JAX CLI);
 * a subprocess with ``jax``, ``PIL`` and ``yaml`` blocked in
   ``sys.modules`` imports every module of the port and drives the CLI.
 
@@ -30,7 +32,7 @@ from multimot_track_tpu import config as jconfig
 from multimot_track_tpu.pipeline.system import MultiMotSystem as JSystem
 from multimot_track_tpu_torch import cli
 from multimot_track_tpu_torch.io.synth import (
-    SYNTH_CAM, make_multimover_frames, write_kitti_tree, write_tum_tree)
+    SYNTH_CAM, make_multimover_frames, write_euroc_tree, write_kitti_tree, write_tum_tree)
 
 torch.set_num_threads(1)
 
@@ -113,9 +115,22 @@ def test_cli_tum(tmp_path, capsys, frames, jax_summary_keys):
 
 @pytest.mark.parametrize("flag,item", [("--mono", "item 19"), ("--euroc", "item 19"),
                                        ("--viz", "item 23")])
-def test_cli_refuses_unported_modes(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([str(tmp_path), "--cpu", flag])
+def test_cli_refuses_unported_modes(tmp_path, frames, flag, item):
+    """``--viz`` (ROADMAP item 23) is refused.  The monocular modes of item
+    19 are ported: ``--mono`` over a KITTI tree and ``--euroc`` over an
+    EuRoC tree run on the CPU and write ``mono_trajectory.txt``
+    (tests/test_torch_entry_mono.py holds them to the JAX CLI)."""
+    if flag == "--viz":
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main([str(tmp_path), "--cpu", flag])
+        return
+    if flag == "--mono":
+        root = write_kitti_tree(tmp_path / "seq", frames[:2], flow=False)
+        (root / "kitti03.yaml").write_text(kitti03_yaml(SYNTH_CAM))
+    else:
+        root = write_euroc_tree(tmp_path / "seq", frames[:2], SYNTH_CAM)
+    assert cli.main([str(root), "--cpu", flag, "--out", str(tmp_path / "out")]) == 0
+    assert np.loadtxt(tmp_path / "out" / "mono_trajectory.txt").shape == (2, 12)
 
 
 def test_cli_needs_a_card_without_cpu(tmp_path, frames):

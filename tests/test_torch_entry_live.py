@@ -8,7 +8,8 @@ closing).  Both draw the same RANSAC hypotheses (``JaxKeySampler``).
 
 Tolerances: the raw trajectory (the device odometry chain) max |dT| <=
 1e-3, the slice gate's (measured 2.0e-4); the refined trajectory <= 3e-3
-(measured 1.7e-3); keyframes, object records, track IDs and quad matches
+(measured 1.7e-3), above the 1e-3 gate because the gap is the reference's
+own float sensitivity (``test_the_first_ego_solve_gap_is_the_references_own_spread``); keyframes, object records, track IDs and quad matches
 identical.  Per frame, the object half (label slots seen, static, solved
 and active, their point counts) is identical and the solved slots'
 inlier counts agree to +-2.  Neither package makes a record on stereo
@@ -29,6 +30,7 @@ package's ``local_map_refine`` to 1e-5 (checked below), and the one at
 frame 3, on 43 inliers, carries its input gap of 2e-4 to 1.7e-3.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,18 +39,26 @@ import torch
 from multimot_track_tpu import config as jconfig
 from multimot_track_tpu.io.stereo_seq import StereoKittiSequence as JStereoSeq
 from multimot_track_tpu.io.synth import synth_camera_config
+from multimot_track_tpu.ops import wire as jwire
+from multimot_track_tpu.pipeline import frames as jframes
 from multimot_track_tpu.pipeline import keyframes as jkeyframes
+from multimot_track_tpu.pipeline import tracker as jtracker
+from multimot_track_tpu.solvers import flow_ba as jflow_ba
 from multimot_track_tpu.pipeline.system import MultiMotSystem as JSystem
 from multimot_track_tpu.pipeline.system import run_sequence as jrun_sequence
 from multimot_track_tpu_torch import config as tconfig
+from multimot_track_tpu_torch import state
 from multimot_track_tpu_torch.io.stereo_seq import StereoKittiSequence as TStereoSeq
 from multimot_track_tpu_torch.io.synth import synth_camera_config as t_synth_cam
 from multimot_track_tpu_torch.io.synth import write_stereo_tree
+from multimot_track_tpu_torch.pipeline import frames as tframes
 from multimot_track_tpu_torch.pipeline import live_refine
+from multimot_track_tpu_torch.pipeline import tracker as ttracker
+from multimot_track_tpu_torch.solvers import flow_ba
 from multimot_track_tpu_torch.pipeline.system import MultiMotSystem as TSystem
 from multimot_track_tpu_torch.pipeline.system import run_sequence as trun_sequence
 from test_torch_ransac import FoldInKeys, JaxKeySampler
-from test_torch_tracker import small_config
+from test_torch_tracker import _wire, small_config
 
 torch.set_num_threads(1)
 
@@ -184,3 +194,65 @@ def test_stereo_run_sequence_summary_matches_jax(runs):
     for k in ("ego_ate_rmse_m", "ego_ate_rmse_raw_m"):
         assert abs(st[k] - sj[k]) <= REFINED_TOL, (k, st[k], sj[k])
     assert t.lm_accepted_frames == [2, 3]
+
+
+def test_the_first_ego_solve_gap_is_the_references_own_spread(runs):
+    """Where the raw gap starts: the first pair's forward camera flow-BA.
+    Both packages reach it with the same 243 points and inits 1e-6 apart,
+    and part by 2.4e-4.  On the port's inputs, the same 20-iteration LM
+    solved in float64 is the yardstick: the port's float32 solve ends 1.8e-5
+    from it, the JAX package's jitted float32 solve 2.3e-4, and the JAX
+    function itself run eagerly, or from inits moved by 1e-6, ends 1.6e-4 -
+    2.1e-4 from its jitted result.  So the 2.4e-4 gap of the raw poses, and
+    the 1.7e-3 the frame-3 TrackLocalMap makes of it, are the reference's
+    float32 error: REFINED_TOL stays 3e-3 (ROADMAP Queue 3)."""
+    _, js, *_ = runs
+    fresh = JStereoSeq(js.root, quad_gate=True)
+    fds = [fresh.load_frame(i) for i in range(2)]
+    K, S = JCFG.padding.k_obj_max, JCFG.solver.obj_ensemble_seeds
+    gts = [jframes.make_gt_table(fd.pose_gt, fd.obj_ids_gt, fd.obj_poses_gt, K) for fd in fds]
+    w = [tuple(map(jnp.asarray, _wire(fd))) for fd in fds]
+    obs0 = jtracker.first_step(*w[0], gts[0], JCFG)
+    pair = jframes.build_pair(obs0, jwire._decode_depth(w[1][1], JCFG.camera.width),
+                              jwire._decode_sem(w[1][3], JCFG.camera.width), gts[1], JCFG,
+                              cur_gray=w[1][0].astype(jnp.float32))
+    ctx0 = jtracker.initial_context(K)
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 1)
+    ref = jtracker.track_pair(key, pair, ctx0, JCFG)
+    calls = []
+    solve = ttracker.solve_flow_ba_auto
+
+    def recording(*a, **kw):
+        out = solve(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ttracker, "solve_flow_ba_auto", recording)
+        out = ttracker.track_pair(state.from_reference(pair, tframes.PairInputs),
+                                  state.from_reference(ctx0, ttracker.TrackContext), TCFG,
+                                  JaxKeySampler([key], K, S), pair_id=0)
+    gap = float(np.abs(state.result_to_numpy(out).Tcw_cur - np.asarray(ref.Tcw_cur)).max())
+    assert 1e-4 < gap <= T_TOL, gap
+    a, kw, res_t = calls[0]                                   # the forward camera solve
+    args = [jnp.asarray(x[0].numpy()) for x in a[:6]]
+    jkw = dict(params=jflow_ba.FlowBAParams(**kw["params"]._asdict()),
+               point_weight=jnp.asarray(kw["point_weight"][0].numpy()))
+    T_jit = np.asarray(jflow_ba.solve_flow_ba(*args, *a[6:10], **jkw).T)
+    variants = []
+    with jax.disable_jit():
+        variants.append(np.asarray(jflow_ba.solve_flow_ba(*args, *a[6:10], **jkw).T))
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        T0 = np.asarray(args[0]).copy()
+        T0[:3, 3] += rng.normal(0.0, 1e-6, 3).astype(np.float32)
+        variants.append(np.asarray(jflow_ba.solve_flow_ba(jnp.asarray(T0), *args[1:], *a[6:10],
+                                                          **jkw).T))
+    spread = max(float(np.abs(v - T_jit).max()) for v in variants)
+    r64 = flow_ba.solve_flow_ba(*[x.double() if x.dtype == torch.float32 else x for x in a[:6]],
+                                *a[6:10], params=kw["params"],
+                                point_weight=kw["point_weight"].double())
+    T64 = r64.T[0].numpy()
+    assert float(np.abs(res_t.T[0].numpy() - T64).max()) <= 5e-5
+    assert float(np.abs(T_jit - T64).max()) > 1e-4
+    assert spread > 1e-4, spread
