@@ -153,18 +153,40 @@ Phases, in order; any failure exits non-zero before the result lines:
      shuttle through the plain matcher: the same events, poses within
      1e-4; K2 against its plain version on the tracker's own last
      tracked-mode match (1024 vs 1024, r = 18) and TrackLocalMap match (r =
-     12), exactly equal, with ms and bound.  The 8 frames on host-generator
-     draws (seed 0), reported.  (c) The CLI on the card: ``--mono`` over
-     the frames as a KITTI tree, ``--euroc`` over an EuRoC tree and ``--tum
-     --mono`` over a TUM tree (its intrinsics guessed), under
-     build/scratch/mono/ (removed afterwards): the summary, the
-     initialisation frame, ms per frame, K2; the trajectory file must hold
-     a finite pose per frame.  ``--mono-only`` runs phases 1, 2 and 12.
-Then the loop figures' JSON line, the JSON lines of phases 9-10, 11 and 12, one JSON
+     12), exactly equal and one device kernel a call, with the profiler's
+     device ms, the wrapper's ms, the plain version's and the bound.  The
+     8 frames on host-generator draws (seed 0), reported.  (c) The CLI on
+     the card: ``--mono`` over the frames as a KITTI tree, ``--euroc`` over
+     an EuRoC tree and ``--tum --mono`` over a TUM tree (its intrinsics
+     guessed), under build/scratch/mono/ (removed afterwards): the
+     summary, the initialisation frame, ms per frame, K2; the trajectory
+     file must hold a finite pose per frame.  ``--mono-only`` runs phases
+     1, 2 and 12.
+  13. the rest of the single-card surface.  (a) Frames 0-23 of the
+     220-frame circuit (``make_circuit_frames(220, times=range(25))`` at
+     the KITTI camera) through ``MultiMotSystem`` at DEFAULT_CONFIG, live
+     and synchronous: render time, ms per frame, K1 and K2 launches;
+     fails unless every pose is finite, camera t-RPE mean < 0.02 and ATE
+     < 0.60 m (tests/test_long_seq.py's circuit bounds), K1 > 0 and K2 ==
+     refinements + fuse scans.  (e) Frame 24 through the same system and
+     SIFT on it, inside ``utils/profiling.trace`` (a Chrome trace under
+     build/profile/) and a ``StageTimer``: the trace must hold both
+     annotated names and device kernels.  (b) ``frontend/sift.extract_sift``
+     on that 1242x375 frame at n_max 1024, the card against the CPU: >= 99
+     % of the valid keypoints identical in position and scale, an angle
+     that differs only where the CPU's orientation histogram ties the two
+     bins, descriptors within 1e-4 (of the CPU's descriptor at the card's
+     angle where they differ); ms a call.  (c) ``solve_flow_depth_ba`` at
+     N = 4096 (seeded), the card against the CPU: max |dT| <= 1e-4, equal
+     inliers; ms a call.  (d) The CLI with ``--viz --out`` on frames 0-3
+     as a KITTI tree: speed_000001-3.png at 1242x375 and a traj.png with
+     drawn pixels, read back with ``io/png.read_png``.
+     ``--surface-only`` runs phases 1, 2 and 13.
+Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12 and 13, one JSON
 line of kernel figures (K1's launches from the synchronous live run, K2's
 from it and, as ``mono_launches``, from phase 12's 8 frames with the
-backend on), the nvidia-smi line, and the final ``{"ok": true, "device":
-...}`` line.
+backend on; as ``circuit_launches``, each kernel's from phase 13(a)), the
+nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
 Imports nothing of JAX.
 """
 
@@ -2090,15 +2112,21 @@ def phase_mono(dev, log_dir):
         ms_p = time_ms(lambda: matching.match_projected_plain(*args, radius=radius),
                        rounds=5, reps=5)
         bound_us, bound_by, n_pairs = k2_bound_us(args, (bk, sk, ik), radius)
+        split, _ = one_kernel_split(lambda: match_projected_cuda(*args, radius=radius))
+        n_kern, us_dev = sum(n for n, _ in split.values()), per_call_us(split)
         shape = f"{args[0].shape[-2]} vs {args[3].shape[0]}, r = {radius:g}"
         log(f"[mono K2] {name} ({shape}, {int(args[2].sum())} valid queries): {n_diff} "
-            f"differing outputs (must be 0) | kernel {ms_k:.4f} ms/call (wrapper, CUDA "
+            f"differing outputs (must be 0) | kernel {us_dev / 1e3:.4f} ms device "
+            f"({n_kern:.1f} kernels per call, profiler), {ms_k:.4f} ms/call (wrapper, CUDA "
             f"events), plain {ms_p:.4f} | bound {bound_us:.3f} us by {bound_by} "
-            f"({n_pairs} gated pairs)")
-        k2_calls.append(dict(call=name, shape=shape, max_abs_err=err, ms=ms_k, plain_ms=ms_p,
-                             bound_ms=bound_us / 1e3, bound_by=bound_by))
+            f"({n_pairs} gated pairs), {100 * bound_us / max(us_dev, 1e-9):.2f} % of bound")
+        k2_calls.append(dict(call=name, shape=shape, max_abs_err=err, ms=us_dev / 1e3,
+                             wrapper_ms=ms_k, plain_ms=ms_p, bound_ms=bound_us / 1e3,
+                             bound_by=bound_by, kernels_per_call=n_kern))
         if n_diff:
             raise SystemExit(f"mono: K2 disagrees with its plain version on the {name}")
+        if n_kern != 1:
+            raise SystemExit(f"mono: K2 ran {n_kern} device kernels per call on the {name}")
     fig["k2_calls"] = k2_calls
 
     # the port's own host-generator draws (reported: the tracker's frame-2
@@ -2131,6 +2159,194 @@ def phase_mono(dev, log_dir):
         fig[f"cli {tag}"] = dict(summary=summ, init_frame=tr.init_frame,
                                  ms_per_frame=1e3 * secs / len(frames), k2_launches=k2)
     shutil.rmtree(MONO_DIR, ignore_errors=True)
+    return fig
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the rest of the single-card surface
+
+CIRCUIT_N, CIRCUIT_WINDOW = 220, 24     # phase 13(a): frames 0-23 of the 220-frame lap
+SURFACE_DIR = os.path.join(REPO, "build", "scratch", "surface")
+PROFILE_DIR = os.path.join(REPO, "build", "profile")
+SIFT_SHARED_MIN, SIFT_DESC_ATOL, SIFT_TIE_RTOL = 0.99, 1e-4, 1e-5
+DEPTH_BA_T_ATOL = 1e-4
+
+
+def sift_agreement(img_cpu, a, b):
+    """Card keypoints ``a`` against CPU keypoints ``b`` (numpy dicts):
+    (shared share of the valid keypoints, angle flips, flips off a tie,
+    max |d desc| over the shared keypoints).  A keypoint is shared when its
+    position and scale are equal.  Where the angles differ the CPU's
+    orientation histogram must tie the two bins (to SIFT_TIE_RTOL), and the
+    card's descriptor is held to the CPU's ``_descriptors`` at the card's
+    angle; elsewhere to the CPU's own descriptor."""
+    import torch
+
+    from multimot_track_tpu_torch.frontend import sift
+
+    key = lambda k: {(float(u), float(v), float(s)): i for i, ((u, v), s) in
+                     enumerate(zip(k["uv"], k["scale"])) if k["valid"][i]}
+    ka, kb = key(a), key(b)
+    shared = sorted(set(ka) & set(kb))
+    ia = np.asarray([ka[k] for k in shared], np.int64)
+    ib = np.asarray([kb[k] for k in shared], np.int64)
+    flip = np.abs(a["angle"][ia] - b["angle"][ib]) > 1e-6
+    hist = sift._orientation_hist(img_cpu, torch.from_numpy(b["uv"][ib])).numpy()
+    tied = hist >= hist.max(-1, keepdims=True) * (1 - SIFT_TIE_RTOL)
+    bin_a = np.round((a["angle"][ia] + np.pi) / (2 * np.pi) * 36 - 0.5).astype(int) % 36
+    off_tie = int((flip & ~tied[np.arange(len(ib)), bin_a]).sum())
+    ref = b["desc"][ib].copy()
+    if flip.any():
+        ref[flip] = sift._descriptors(
+            img_cpu, torch.from_numpy(b["uv"][ib][flip]), torch.from_numpy(b["scale"][ib][flip]),
+            torch.from_numpy(a["angle"][ia][flip])).numpy()
+    err = float(np.abs(a["desc"][ia] - ref).max()) if len(ia) else float("inf")
+    return len(shared) / max(len(ka), len(kb), 1), int(flip.sum()), off_tie, err
+
+
+def depth_ba_problem(rng, n, cam):
+    """A flow+depth BA problem as tests/test_flow_depth_ba.py builds it: n
+    points 5-30 m deep, a known motion, flow noise 0.05 px, depth 8 %."""
+    import torch
+
+    from multimot_track_tpu_torch.geometry import camera, se3
+
+    uv = rng.uniform([80, 40], [cam.width - 80, cam.height - 40], (n, 2)).astype(np.float32)
+    z = rng.uniform(5.0, 30.0, (n,)).astype(np.float32)
+    X = camera.backproject(torch.from_numpy(uv), torch.from_numpy(z), cam.fx, cam.fy, cam.cx, cam.cy)
+    T_true = se3.exp_se3(torch.tensor([0.01, -0.02, 0.005, 0.3, -0.1, 1.1]))
+    uv_cur = camera.project(se3.transform(T_true, X), cam.fx, cam.fy, cam.cx, cam.cy).numpy()
+    flow = (uv_cur - uv + rng.normal(scale=0.05, size=(n, 2))).astype(np.float32)
+    z_meas = (z * (1 + rng.normal(scale=0.08, size=n))).astype(np.float32)
+    return uv, flow, z_meas
+
+
+def phase_surface(dev, log_dir):
+    """Phase 13 (see the module docstring)."""
+    import shutil
+
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.frontend import sift
+    from multimot_track_tpu_torch.io.png import read_png
+    from multimot_track_tpu_torch.io.synth import (
+        KITTI_SYNTH_CAM, make_circuit_frames, write_kitti_tree)
+    from multimot_track_tpu_torch.solvers import flow_ba
+    from multimot_track_tpu_torch.utils.profiling import StageTimer, annotate, trace
+
+    fig = {}
+    # (a) the circuit window at full width, live, synchronous
+    t0 = time.perf_counter()
+    frames = make_circuit_frames(CIRCUIT_N, cam=dict(KITTI_SYNTH_CAM),
+                                 times=range(CIRCUIT_WINDOW + 1))
+    render_s = time.perf_counter() - t0
+    window, extra = frames[:CIRCUIT_WINDOW], frames[CIRCUIT_WINDOW]
+    reset_launches()
+    s, _, host_s, dev_ms = run_live(dev, window, DEFAULT_CONFIG)
+    k1, k2 = read_launches()
+    summ = s.summary()
+    poses = np.stack(s.map.camera_poses)
+    kf = s.keyframes
+    ms = 1e3 * host_s / len(window)
+    log(f"[surface circuit] frames 0-{CIRCUIT_WINDOW - 1} of the {CIRCUIT_N}-frame lap at "
+        f"1242x375 rendered in {render_s:.1f} s ({CIRCUIT_WINDOW + 1} frames); live sync at "
+        f"DEFAULT_CONFIG: {ms:.2f} ms/frame (host clock; {dev_ms / len(window):.2f} by events), "
+        f"cam t-RPE mean {summ['cam_t_rpe_rel_mean']}, ATE {summ['ego_ate_rmse_m']} m, "
+        f"{summ['n_obj_estimates']} object records, keyframes {[k.index for k in kf.frames]}, "
+        f"loops {summ['n_loop_closures']}; K1 {k1}, K2 {k2} (refinements "
+        f"{s.n_lm_dispatched} + fuse scans {kf.n_fuse_scans})")
+    fig["circuit"] = dict(frames=len(window), render_s=render_s, ms_per_frame=ms,
+                          cam_t_rpe_rel_mean=summ["cam_t_rpe_rel_mean"],
+                          ego_ate_rmse_m=summ["ego_ate_rmse_m"],
+                          n_obj_estimates=summ["n_obj_estimates"], k1_launches=k1,
+                          k2_launches=k2, stages=s.stage_report())
+    if not (np.all(np.isfinite(poses)) and len(poses) == len(window)
+            and summ["cam_t_rpe_rel_mean"] < 0.02 and summ["ego_ate_rmse_m"] < 0.60
+            and k1 > 0 and k2 == s.n_lm_dispatched + kf.n_fuse_scans > 0):
+        raise SystemExit(f"surface circuit: {summ}, K1 {k1}, K2 {k2}")
+
+    # (e) StageTimer and a profiler trace over one more live frame
+    timer = StageTimer()
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    with trace(PROFILE_DIR) as prof:
+        with timer.stage("track_rgbd"), annotate("mmt_track_rgbd"):
+            s.track_rgbd(extra)
+            s.flush()
+        with timer.stage("sift") as h, annotate("mmt_sift"):
+            h["result"] = sift.extract_sift(torch.from_numpy(extra.gray).to(dev))
+    events = json.load(open(prof.trace_path))["traceEvents"]
+    names = {e.get("name") for e in events}
+    n_kern = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[surface trace] {os.path.relpath(prof.trace_path, REPO)}: "
+        f"{os.path.getsize(prof.trace_path) / 2 ** 20:.1f} MiB, {len(events)} events, "
+        f"{n_kern} device kernels; stage timer:\n{timer.report()}")
+    fig["trace"] = dict(events=len(events), device_kernels=n_kern, stages=timer.summary())
+    if not {"mmt_track_rgbd", "mmt_sift"} <= names or n_kern == 0 \
+            or sorted(timer.summary()) != ["sift", "track_rgbd"]:
+        raise SystemExit("surface trace: the annotated names or the device kernels are missing")
+
+    # (b) SIFT on the card against the CPU on one rendered frame
+    img = extra.gray.astype(np.float32)
+    kp_dev = sift.extract_sift(torch.from_numpy(img).to(dev), n_max=1024)
+    kp_cpu = sift.extract_sift(torch.from_numpy(img), n_max=1024)
+    a = {k: v.cpu().numpy() for k, v in kp_dev._asdict().items()}
+    b = {k: v.numpy() for k, v in kp_cpu._asdict().items()}
+    share, flips, off_tie, err = sift_agreement(torch.from_numpy(img), a, b)
+    g = torch.from_numpy(img).to(dev)
+    ms_sift = time_ms(lambda: sift.extract_sift(g, n_max=1024), rounds=3, reps=3)
+    log(f"[surface sift] 1242x375, n_max 1024: {int(a['valid'].sum())} valid on the card, "
+        f"{int(b['valid'].sum())} on the CPU; shared {100 * share:.2f} % (>= "
+        f"{100 * SIFT_SHARED_MIN:.0f} %), {flips} angle flips ({off_tie} off a tie), "
+        f"max |d desc| {err:.2e} (<= {SIFT_DESC_ATOL}); {ms_sift:.2f} ms a call (card)")
+    fig["sift"] = dict(shared=share, angle_flips=flips, max_desc_err=err, ms=ms_sift)
+    if share < SIFT_SHARED_MIN or off_tie or err > SIFT_DESC_ATOL:
+        raise SystemExit("surface sift: the card disagrees with the CPU")
+
+    # (c) the flow+depth BA on the card against the CPU at N = 4096
+    cam = DEFAULT_CONFIG.camera
+    uv, flow, z = depth_ba_problem(np.random.default_rng(61), 4096, cam)
+    params = flow_ba.FlowDepthBAParams(iters=100, depth_prior_info=0.5)
+
+    def solve(device):
+        t = lambda x: torch.from_numpy(x).to(device)
+        eye = torch.eye(4, device=device)
+        return flow_ba.solve_flow_depth_ba(eye, eye, t(uv), t(flow), t(z),
+                                           torch.ones(len(uv), dtype=torch.bool, device=device),
+                                           cam.fx, cam.fy, cam.cx, cam.cy, params=params)
+
+    rd, rc = solve(dev), solve(torch.device("cpu"))
+    dT = float((rd.T.cpu() - rc.T).abs().max())
+    ms_ba = time_ms(lambda: solve(dev), rounds=3, reps=2)
+    log(f"[surface flow+depth BA] N = 4096: card vs CPU max |dT| {dT:.2e} (<= "
+        f"{DEPTH_BA_T_ATOL}), inliers {int(rd.n_inliers)} / {int(rc.n_inliers)}; "
+        f"{ms_ba:.2f} ms a call (card, one host read per LM step)")
+    fig["flow_depth_ba"] = dict(max_dT=dT, inliers=[int(rd.n_inliers), int(rc.n_inliers)],
+                                ms=ms_ba)
+    if dT > DEPTH_BA_T_ATOL or int(rd.n_inliers) != int(rc.n_inliers):
+        raise SystemExit("surface flow+depth BA: the card disagrees with the CPU")
+
+    # (d) the CLI with --viz --out on a 4-frame KITTI tree
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    root = write_kitti_tree(os.path.join(SURFACE_DIR, "kitti"), window[:4])
+    (root / "kitti03.yaml").write_text(
+        "%YAML:1.0\n" + "".join(f"Camera.{k}: {float(v)}\n" for k, v in KITTI_SYNTH_CAM.items()))
+    out = os.path.join(SURFACE_DIR, "out")
+    _, _, summ, secs, k1, k2 = run_cli_logged([str(root), "--viz", "--out", out],
+                                              os.path.join(log_dir, "surface_cli_viz.log"))
+    speed = sorted(f for f in os.listdir(out) if f.startswith("speed_"))
+    shapes = {f: read_png(os.path.join(out, f)).shape for f in speed}
+    traj = read_png(os.path.join(out, "traj.png"))
+    log(f"[surface cli --viz] {speed} at {set(shapes.values())}, traj.png {traj.shape} with "
+        f"{int((traj != 255).any(-1).sum())} drawn pixels; {1e3 * secs / 4:.1f} ms/frame; "
+        f"K1 {k1}, K2 {k2}; ATE {summ['ego_ate_rmse_m']} m")
+    fig["cli_viz"] = dict(speed_png=len(speed), ms_per_frame=1e3 * secs / 4,
+                          drawn_traj_pixels=int((traj != 255).any(-1).sum()))
+    shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+    if speed != [f"speed_{i:06d}.png" for i in (1, 2, 3)] \
+            or set(shapes.values()) != {(375, 1242, 3)} or traj.shape != (800, 800, 3) \
+            or not (traj != 255).any():
+        raise SystemExit("surface cli: --viz / traj.png images missing or wrong")
     return fig
 
 
@@ -2173,6 +2389,9 @@ def main(argv) -> int:
     if "--mono-only" in argv:               # phases 1, 2 and 12 alone, no result lines
         log(json.dumps({"mono": phase_mono(dev, log_dir)}, default=float))
         return 0
+    if "--surface-only" in argv:            # phases 1, 2 and 13 alone, no result lines
+        log(json.dumps({"surface": phase_surface(dev, log_dir)}, default=float))
+        return 0
     if "--entry-only" in argv:              # phases 1, 2 and 11 alone, no result lines
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
@@ -2203,6 +2422,8 @@ def main(argv) -> int:
     log(json.dumps({"entry": entry}))
     mono = phase_mono(dev, log_dir)
     log(json.dumps({"mono": mono}, default=float))
+    surface = phase_surface(dev, log_dir)
+    log(json.dumps({"surface": surface}, default=float))
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{
@@ -2211,6 +2432,7 @@ def main(argv) -> int:
         "source": "multimot_track_tpu_torch/csrc/flow_ba_lm.cu",
         "replaces": "multimot_track_tpu/solvers/flow_ba_pallas.py:372",
         "launches": live["k1_launches"],
+        "circuit_launches": surface["circuit"]["k1_launches"],
         "max_abs_err": max(f["max_abs_err"] for f in k1),
         "ms": obj["ms"],
         "plain_ms": obj["plain_ms"],
@@ -2224,6 +2446,7 @@ def main(argv) -> int:
         "replaces": "multimot_track_tpu/ops/pallas_match.py:63",
         "launches": live["k2_launches"],
         "mono_launches": mono["backend on"]["k2_launches"],
+        "circuit_launches": surface["circuit"]["k2_launches"],
         "max_abs_err": max(f["max_abs_err"] for f in k2 + mono["k2_calls"]),
         "ms": lm["ms"],
         "plain_ms": lm["plain_ms"],

@@ -3,16 +3,17 @@
 print per-frame metrics, dump trajectories and results.
 
   python -m multimot_track_tpu_torch.cli <sequence_dir> [--settings kitti03.yaml]
-      [--frames N] [--out DIR] [--cpu] [--stereo [--quad-stereo]] [--tum]
+      [--frames N] [--out DIR] [--viz] [--cpu] [--stereo [--quad-stereo]] [--tum]
       [--mono] [--euroc]
 
 Port of ``multimot_track_tpu.cli`` with the same flags.  Everything runs on
 the card unless ``--cpu`` is given; without a card and without ``--cpu``
 it raises.  ``--mono`` (over a KITTI tree, or a TUM one with ``--tum``)
-and ``--euroc`` run the monocular tracker (``run_mono``).  Not ported yet:
-``--viz`` / ``traj.png`` (the overlay renderer, ROADMAP item 23): ``--viz``
-raises, and ``--out`` says that ``traj.png`` is not written.
-``--profile`` is parsed and unused, as in the JAX package.
+and ``--euroc`` run the monocular tracker (``run_mono``).  ``--out``
+writes the results and the top-down trajectory ``traj.png``; with
+``--viz`` also each frame's object boxes and speeds as ``speed_%06d.png``
+(``viz/render.py``, no PIL).  ``--profile`` is parsed and unused, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -25,9 +26,6 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-
-VIZ_TODO = "the overlay renderer (--viz, traj.png) is not ported yet: ROADMAP item 23"
-
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="Multi-motion tracking on the card (PyTorch/CUDA)")
@@ -116,12 +114,11 @@ def run(argv=None):
     ``summary:`` JSON on stdout, write results under ``--out``; returns
     (system, sequence, summary) for callers that read the run further."""
     args = parse_args(argv)
-    if args.viz:
-        raise NotImplementedError(VIZ_TODO)
 
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG
     from multimot_track_tpu_torch.io.yamlcfg import config_from_yaml
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+    from multimot_track_tpu_torch.viz import render
 
     device = "cpu" if args.cpu else "cuda"
     cfg = DEFAULT_CONFIG
@@ -185,6 +182,12 @@ def run(argv=None):
                     f"RPE t={float(ob.t_rpe_rel[slot])*100:.2f}% "
                     f"R={float(ob.r_rpe_rel[slot]):.4f}deg/m"
                 )
+            if args.viz and out:
+                solved = np.flatnonzero(active)
+                render.draw_objects(fd.gray, [np.asarray(ob.bbox[s]) for s in solved],
+                                    [int(s) + 1 for s in solved],
+                                    [float(ob.speed_est[s]) for s in solved],
+                                    path=out / f"speed_{i:06d}.png")
 
     summary = sys_.summary()
     if getattr(seq, "quad_gate", False):
@@ -192,7 +195,10 @@ def run(argv=None):
     print("\nsummary:", json.dumps(summary, indent=2))
     if out:
         sys_.save_results(out)
-        print(f"traj.png not written: {VIZ_TODO}")
+        obj_pts = [(o.centre3d, o.track_id) for o in sys_.map.obj_records
+                   if np.all(np.isfinite(o.centre3d))]
+        render.draw_trajectory([np.asarray(p) for p in sys_.map.camera_poses],
+                               object_centres=obj_pts, path=out / "traj.png")
         print(f"results written to {out}")
     if hasattr(seq, "close"):
         seq.close()

@@ -18,7 +18,9 @@ What had to be written out to match the JAX package:
 * The steering rotation is written elementwise (``c*px - s*py``), so no
   matmul path contracts it differently.
 
-``learn_brief_pattern`` (the offline rBRIEF learner) is not ported.
+``learn_brief_pattern`` is the offline rBRIEF learner: it returns the
+selected table and writes nothing; its caller decides where the table
+goes (``brief_pattern`` reads only ``LEARNED_PATTERN``).
 """
 
 from __future__ import annotations
@@ -79,6 +81,60 @@ def brief_pattern(seed: int = 1234, n_bits: int = N_BITS) -> np.ndarray:
         if pat.shape == (n_bits, 2, 2):
             return pat.astype(np.float32)
     return _random_pairs(seed, n_bits)
+
+
+def learn_brief_pattern(
+    grays,                       # iterable of (H, W) float images
+    n_bits: int = N_BITS,
+    n_candidates: int = 3072,
+    n_kp_per_image: int = 512,
+    corr_thresh: float = 0.2,
+    seed: int = 7,
+    device="cpu",
+) -> np.ndarray:
+    """rBRIEF pattern learning (ORB paper sec. 4.3): candidate tests are
+    scored over steered training patches; the greedy selection keeps tests
+    with a bit mean closest to 0.5 whose |correlation| with every kept test
+    stays under a threshold, raised by 0.05 until ``n_bits`` survive.  Port
+    of the JAX package's ``learn_brief_pattern``: the patches come from this
+    package's FAST pyramid, blur and steered BRIEF on ``device``; the
+    selection is the same numpy loop.  Returns the (n_bits, 2, 2) table."""
+    from multimot_track_tpu_torch.frontend import fast
+
+    cand = _random_pairs(seed, n_candidates)
+    bits = []
+    for g in grays:
+        img = torch.as_tensor(np.asarray(g, np.float32), device=device)
+        kp = fast.detect_pyramid(img[None], n_levels=4, n_total=n_kp_per_image)
+        uv, valid = kp.uv[0], kp.valid[0]
+        blur = gaussian_blur(img)
+        ang = compute_orientations(blur, uv)
+        b = brief_descriptors(blur, uv, ang, pattern=cand)      # (N, M) +-1
+        bits.append(b[valid].cpu().numpy())
+    B = np.concatenate(bits, axis=0).astype(np.float32)        # (T, M)
+    T = B.shape[0]
+    mean = B.mean(0)                                           # in [-1, 1]
+    order = np.argsort(np.abs(mean))                           # closest to 0 first
+    Bc = B - mean                                              # centred
+    norm = np.sqrt(np.maximum((Bc * Bc).sum(0), 1e-9))
+
+    for thresh in np.arange(corr_thresh, 1.01, 0.05):
+        picked = []
+        for j in order:
+            if not picked:
+                picked.append(int(j))
+                continue
+            c = np.abs(Bc[:, picked].T @ Bc[:, j]) / (norm[picked] * norm[j])
+            if c.max() < thresh:
+                picked.append(int(j))
+            if len(picked) == n_bits:
+                break
+        if len(picked) == n_bits:
+            return cand[np.asarray(picked)]
+    raise RuntimeError(
+        f"could not select {n_bits} decorrelated tests from "
+        f"{n_candidates} candidates over {T} patches"
+    )
 
 
 def _gather(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:

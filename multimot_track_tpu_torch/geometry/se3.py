@@ -140,6 +140,10 @@ def transform(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     )
 
 
+# the JAX package's point-set form; ``transform`` already takes point sets
+transform_points = transform
+
+
 def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
     """Rotation magnitude in degrees via the reference's clamped-trace
     formula (diagonal entries > 1 folded as 1 - (d - 1))."""
@@ -147,3 +151,15 @@ def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
     d = torch.where(d > 1.0, 1.0 - (d - 1.0), d)
     cos_t = (d.sum(-1) - 1.0) * 0.5
     return torch.arccos(torch.clamp(cos_t, -1.0, 1.0)) * (180.0 / 3.1415926)
+
+
+def euler_y_to_R(yaw: torch.Tensor) -> torch.Tensor:
+    """R = Ry(yaw) as composed by the reference's KITTI object-pose parser
+    (which adds pi/2 to the raw rotation_y before calling this)."""
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    zero, one = torch.zeros_like(yaw), torch.ones_like(yaw)
+    return torch.stack(
+        [torch.stack([cy, zero, sy], -1), torch.stack([zero, one, zero], -1),
+         torch.stack([-sy, zero, cy], -1)],
+        -2,
+    )

@@ -1,13 +1,17 @@
 """Synthetic sequence construction (test/dev fixtures).
 
 A numpy copy of the in-memory renderers of ``multimot_track_tpu.io.synth``
-(that package imports jax at import time) and of its stereo-tree writer
+(that package imports jax at import time), of its stereo-tree writer
 ``write_stereo_tree``, which writes its PNGs through ``io/png.write_png``
-instead of PIL (the KITTI-sample rebuilder ``build`` is not copied), and
-two writers of its own, ``write_kitti_tree`` and ``write_tum_tree``, that
+instead of PIL, and of ``build`` (a forward and reversed replay of a
+KITTI directory); and writers of its own,
+``write_kitti_tree``, ``write_tum_tree`` and ``write_euroc_tree``, that
 put rendered frames on disk in the layouts the sequence readers take.
-tests/test_torch_geometry.py pins the rendered arrays and the stereo tree
-to the original bit for bit.
+``make_circuit_frames`` and ``make_avenue_frames`` take ``times=`` (as the
+junction does): they render only those frames of the full scene, so
+frames k..k+n of the 220-frame lap cost n renders.
+tests/test_torch_geometry.py pins the rendered arrays, the stereo tree and
+``build``'s output to the original bit for bit.
 
 ``make_multimover_frames`` renders a fully-synthetic multi-object scene
 (kitti_sample has ONE ground-truth mover; the reference's label-switch
@@ -19,8 +23,62 @@ and birth/death included.  This is the multi-object stress fixture."""
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import shutil
 
 import numpy as np
+
+
+def build(src, dst, include_objects: bool = False, order=None):
+    """``order`` — explicit source-frame index sequence; default is one
+    forward + one reversed pass.  Longer shuttle patterns (fwd-rev-fwd-…)
+    make marathon fixtures with repeated revisits."""
+    src = pathlib.Path(src)
+    dst = pathlib.Path(dst)
+    if dst.exists():
+        shutil.rmtree(dst)
+    (dst / "image").mkdir(parents=True)
+    (dst / "depth").mkdir()
+    (dst / "semantic").mkdir()
+
+    n = len(list((src / "image").glob("*.png")))
+    if order is None:
+        order = list(range(n)) + list(range(n - 2, -1, -1))
+
+    for out_i, in_i in enumerate(order):
+        for sub, ext in (("image", "png"), ("depth", "png"), ("semantic", "txt")):
+            s = src / sub / f"{in_i:06d}.{ext}"
+            d = dst / sub / f"{out_i:06d}.{ext}"
+            try:
+                d.symlink_to(s)
+            except OSError:
+                shutil.copy(s, d)
+
+    poses = {}
+    for line in (src / "pose_gt.txt").read_text().splitlines():
+        parts = line.split()
+        if parts:
+            poses[int(float(parts[0]))] = parts[1:]
+    with open(dst / "pose_gt.txt", "w") as f:
+        for out_i, in_i in enumerate(order):
+            if in_i in poses:
+                f.write(f"{out_i} " + " ".join(poses[in_i]) + "\n")
+
+    with open(dst / "times.txt", "w") as f:
+        for out_i in range(len(order)):
+            f.write(f"{out_i * 0.1:.6e}\n")
+
+    if include_objects and (src / "object_pose.txt").exists():
+        rows = {}
+        for line in (src / "object_pose.txt").read_text().splitlines():
+            parts = line.split()
+            if parts:
+                rows.setdefault(int(float(parts[0])), []).append(parts[1:])
+        with open(dst / "object_pose.txt", "w") as f:
+            for out_i, in_i in enumerate(order):
+                for r in rows.get(in_i, []):
+                    f.write(f"{out_i} " + " ".join(r) + "\n")
+    return len(order)
 
 
 # ---------------------------------------------------------------------------
@@ -416,14 +474,16 @@ def vee_panels(n_dir, half_w, half_h, angle_deg: float = 35.0):
 
 def make_circuit_frames(n_frames: int = 220, radius: float = 28.0,
                         cam=None, overlap: float = 0.12,
-                        texture: str = "default"):
+                        texture: str = "default", times=None):
     """Closed circular circuit with a genuine revisit (loop-closure proof
     at scale): the ego drives one full lap + ``overlap`` (default 12%), so the tail
     re-observes the head's scenery from the same poses.  Continuous
     turning (full 360 deg of yaw), a lead vehicle (as 4 lifespan segments
     so each fixed-orientation quad stays near face-on), oncoming traffic
     on the inner ring and radial crossers — 9 mover lifespans, <= 5
-    concurrent."""
+    concurrent.  ``times`` renders only those of the ``n_frames`` times
+    (see ``_build_frames``: the ground truth is anchored at ``times[0]``,
+    and the last rendered frame's flow is zero)."""
     cam = dict(KITTI_SYNTH_CAM) if cam is None else cam
     # ``overlap``: lap fraction re-driven past the start — sets how many
     # keyframes re-observe the head (the loop-consistency gate needs
@@ -484,15 +544,16 @@ def make_circuit_frames(n_frames: int = 220, radius: float = 28.0,
     poses = _path_poses(positions)
     return _build_frames(cam, lambda t: poses[t], movers,
                          n_frames, box=(-b, b, -b - 2.0, b + 2.0),
-                         texture=_TEXTURES[texture])
+                         texture=_TEXTURES[texture], times=times)
 
 
 def make_avenue_frames(n_frames: int = 240, cam=None,
-                       texture: str = "default"):
+                       texture: str = "default", times=None):
     """Long straight-ish avenue with S-curves: 180 m of travel, lead +
     oncoming + crossing traffic — 10 mover lifespans, <= 6 concurrent.
     Exercises sustained forward odometry with heading changes and
-    repeated mover birth/death at KITTI resolution."""
+    repeated mover birth/death at KITTI resolution.  ``times``: as in
+    ``make_circuit_frames``."""
     cam = dict(KITTI_SYNTH_CAM) if cam is None else cam
     v = 0.75
     amp, period = 2.5, 120.0
@@ -536,7 +597,7 @@ def make_avenue_frames(n_frames: int = 240, cam=None,
     return _build_frames(
         cam, lambda t: poses[t], movers, n_frames,
         box=(-40.0, 40.0, -20.0, v * n_frames + 60.0),
-        texture=_TEXTURES[texture],
+        texture=_TEXTURES[texture], times=times,
     )
 
 

@@ -89,6 +89,26 @@ def track_batch(obs_stack, gray_u8, depth_w, sem_w, gts, cfg, sampler, pair_ids,
                        backend)
 
 
+def stream_chunk(carry_obs: F.FrameObservation, gray_u8, depth_w, flow_w, sem_w,
+                 gts: F.GTTable, cfg: PipelineConfig, sampler: HypothesisSampler, pair_ids,
+                 backend: Optional[str] = None):
+    """One serving stage: C new frames in, C solved pairs out.
+    ``carry_obs`` is the previous chunk's last observation (batch 1, on the
+    device: the boundary frame is never uploaded or described again).
+    Returns (the (C, ...) PairResult, this chunk's last observation)."""
+    obs = frontend_batch(gray_u8, depth_w, flow_w, sem_w, gts, cfg)
+    prev = _cat([carry_obs, _slice(obs, slice(None, -1))])
+    res = track_pairs(prev, gray_u8, depth_w, sem_w, gts, cfg, sampler, pair_ids, backend)
+    return res, _slice(obs, slice(-1, None))
+
+
+def frontend_one(gray_u8, depth_w, flow_w, sem_w, gt: F.GTTable, cfg: PipelineConfig):
+    """Single-frame frontend (the streaming mode's chunk-0 bootstrap): one
+    frame's wire arrays and GT table -> its observation, batch 1."""
+    return frontend_batch(gray_u8[None], depth_w[None], flow_w[None], sem_w[None],
+                          F.stack_gt([gt], gray_u8.device), cfg)
+
+
 def pack_frame_wire(fd, cfg: PipelineConfig = DEFAULT_CONFIG):
     """Host-side wire packing of one FrameData: gray8 + depth12 +
     half-resolution flow12 + sem4."""
@@ -167,8 +187,9 @@ def run_sequence_streaming(
     backend: Optional[str] = None,
 ):
     """Serving mode: chunks of ``chunk`` new frames in v2 wire form, each
-    chunk's frontend and pair solves run together with the previous chunk's
-    last observation carried on the device.  Chunks run one after another.
+    chunk's frontend and pair solves run together (``stream_chunk``) with
+    the previous chunk's last observation carried on the device.  Chunks
+    run one after another.
     Returns the same outputs as ``run_sequence_batched``."""
     device, sampler = _setup(device, seed, sampler)
     K = cfg.padding.k_obj_max
@@ -184,20 +205,17 @@ def run_sequence_streaming(
                 for k in ("gray", "depth", "flow", "sem")}
 
     w0 = upload([0])
-    carry = frontend_batch(w0["gray"], w0["depth"], w0["flow"], w0["sem"],
-                           F.stack_gt([gts[0]], device), cfg)
+    carry = frontend_one(w0["gray"][0], w0["depth"][0], w0["flow"][0], w0["sem"][0], gts[0],
+                         cfg)
     chunks = []
     for c0 in range(0, n_pairs, chunk):
         idx = [min(c0 + 1 + i, Fn - 1) for i in range(chunk)]     # pad with the last
         w = upload(idx)
         gt_c = F.stack_gt([gts[i] for i in idx], device)
-        obs = frontend_batch(w["gray"], w["depth"], w["flow"], w["sem"], gt_c, cfg)
-        prev = _cat([carry, _slice(obs, slice(None, -1))])
         pair_ids = [min(c0 + i, n_pairs - 1) for i in range(chunk)]
-        res = track_pairs(prev, w["gray"], w["depth"], w["sem"], gt_c, cfg, sampler,
-                          pair_ids, backend)
+        res, carry = stream_chunk(carry, w["gray"], w["depth"], w["flow"], w["sem"], gt_c,
+                                  cfg, sampler, pair_ids, backend)
         chunks.append(state.result_to_numpy(res))
-        carry = _slice(obs, slice(-1, None))
     res = F.tree_map(lambda *xs: np.concatenate(xs)[:n_pairs], *chunks)
     return _compose_batch_outputs(res, Fn)
 

@@ -18,6 +18,10 @@ instances at once, freezing each instance's state from the iteration its
 ``solve_flow_ba_auto`` dispatches: the CUDA kernel (solvers/flow_ba_cuda.py)
 for CUDA tensors, this version for CPU tensors.  There is no fallback
 between the two.
+
+``solve_flow_depth_ba`` is the experimental variant with per-point depth
+as a third point variable (3x3 Schur blocks); it has no caller in either
+package and runs as plain torch on the caller's device.
 """
 
 from __future__ import annotations
@@ -190,3 +194,140 @@ def solve_flow_ba_auto(
                                   point_weight=point_weight)
     return solve_flow_ba(T_init, Twl, obs, flow_meas, depth, valid, fx, fy, cx, cy,
                          params=params, point_weight=point_weight)
+
+
+def solve_flow_ba_batched(T_init, Twl, obs, flow_meas, depth, valid, fx, fy, cx, cy,
+                          params: FlowBAParams = FlowBAParams()) -> FlowBAResult:
+    """K independent problems (objects) sharing one (4, 4) ``Twl``: the JAX
+    package's ``vmap`` of ``solve_flow_ba`` (the plain version)."""
+    Twl = Twl.expand(T_init.shape[0], 4, 4)
+    return solve_flow_ba(T_init, Twl, obs, flow_meas, depth, valid, fx, fy, cx, cy,
+                         params=params)
+
+
+class FlowDepthBAParams(NamedTuple):
+    reproj_info: float = 0.1
+    flow_prior_info: float = 0.3
+    depth_prior_info: float = 1.0   # EdgeDepthPrior information
+    rp_thres: float = 0.04
+    iters: int = 100
+    tau: float = 1e-5
+    rel_tol: float = 1e-6
+
+
+def solve_flow_depth_ba(
+    T_init: torch.Tensor,       # (4, 4)
+    Twl: torch.Tensor,          # (4, 4)
+    obs: torch.Tensor,          # (N, 2)
+    flow_meas: torch.Tensor,    # (N, 2)
+    depth_meas: torch.Tensor,   # (N,)
+    valid: torch.Tensor,        # (N,) bool
+    fx: float, fy: float, cx: float, cy: float,
+    params: FlowDepthBAParams = FlowDepthBAParams(),
+) -> FlowBAResult:
+    """Flow-BA with per-point depth as a variable (3-DoF point vertices:
+    flow u, v and depth, each with a Gaussian prior): the reference's
+    experimental ``PoseOptimizationFlowDepth2`` (src/Optimizer.cc:1568).
+    Port of the JAX package's ``solve_flow_depth_ba``: each point's 3x3
+    Schur block is inverted in closed form (``smallsolve.inv_spd3``), and
+    the LM loop stops as its ``while_loop`` does (a small relative gain or
+    lambda > 1e8, at most ``iters`` steps), reading ``done`` on the host
+    once per step.  One problem, on the device of its inputs."""
+    p = params
+    valid = valid & (depth_meas > 0)
+    R_wl, t_wl = Twl[:3, :3], Twl[:3, 3]
+    dirs = camera.backproject(obs, torch.ones_like(depth_meas), fx, fy, cx, cy)
+    vmask = valid.to(obs.dtype)
+
+    def point_world(d):
+        return se3.transform(Twl, camera.backproject(obs, d, fx, fy, cx, cy))
+
+    def residuals(T, f, d):
+        y = se3.transform(T, point_world(d))
+        r_p = (obs + f) - camera.project(y, fx, fy, cx, cy)
+        return y, r_p, f - flow_meas, d - depth_meas
+
+    def robust_objective(T, f, d):
+        _, r_p, r_f, r_d = residuals(T, f, d)
+        chi2_p = p.reproj_info * (r_p * r_p).sum(-1)
+        d2 = p.rp_thres
+        rho = torch.where(chi2_p <= d2, chi2_p,
+                          2 * torch.sqrt(d2 * torch.clamp(chi2_p, min=1e-20)) - d2)
+        F = rho + p.flow_prior_info * (r_f * r_f).sum(-1) + p.depth_prior_info * r_d * r_d
+        return torch.where(valid, F, torch.zeros_like(F)).sum(), chi2_p
+
+    def build(T, f, d, lam):
+        y, r_p, r_f, r_d = residuals(T, f, d)
+        chi2_p = p.reproj_info * (r_p * r_p).sum(-1)
+        w_rob = torch.where(chi2_p <= p.rp_thres, torch.ones_like(chi2_p),
+                            torch.sqrt(p.rp_thres / torch.clamp(chi2_p, min=1e-20)))
+        wp = p.reproj_info * torch.where(valid, w_rob, torch.zeros_like(w_rob))
+        wf = p.flow_prior_info * vmask
+        wd = p.depth_prior_info * vmask
+
+        inv_z = 1.0 / torch.clamp(y[..., 2], min=1e-6)
+        zero = torch.zeros_like(inv_z)
+        dpi = torch.stack([
+            torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
+            torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
+        ], -2)                                              # (N, 2, 3)
+        eye3 = torch.eye(3, dtype=y.dtype, device=y.device).expand(y.shape[:-1] + (3, 3))
+        A = -(dpi @ torch.cat([-se3.hat(y), eye3], -1))     # d r_p / d xi (N, 2, 6)
+        # X = backproject(obs, d) is linear in d: dy/dd = R_total @ the ray
+        dy_dd = dirs @ (T[:3, :3] @ R_wl).T
+        J_d = -(dpi @ dy_dd[..., None])[..., 0]             # (N, 2)
+        eye2 = torch.eye(2, dtype=y.dtype, device=y.device).expand(r_p.shape[:-1] + (2, 2))
+        B = torch.cat([eye2, J_d[..., None]], -1)           # (N, 2, 3): [I2 | J_d]
+
+        H_TT = torch.einsum("nia,nib,n->ab", A, A, wp)
+        g_T = torch.einsum("nia,ni,n->a", A, r_p, wp)
+        prior_diag = torch.stack([wf, wf, wd], -1)          # (N, 3)
+        H_vv = (torch.einsum("nia,nib,n->nab", B, B, wp)
+                + torch.diag_embed(prior_diag + lam))
+        g_v = (torch.einsum("nia,ni,n->na", B, r_p, wp)
+               + prior_diag * torch.stack([r_f[:, 0], r_f[:, 1], r_d], -1))
+        H_Tv = torch.einsum("nia,nib,n->nab", A, B, wp)     # (N, 6, 3)
+
+        H_vv_inv = smallsolve.inv_spd3(H_vv)
+        eye6 = torch.eye(6, dtype=y.dtype, device=y.device)
+        H_red = H_TT + lam * eye6 - torch.einsum("nab,nbc,ndc->ad", H_Tv, H_vv_inv, H_Tv)
+        g_red = g_T - torch.einsum("nab,nbc,nc->a", H_Tv, H_vv_inv, g_v)
+        dxi = smallsolve.solve_spd6(H_red, -g_red)
+        dv = -torch.einsum("nab,nb->na", H_vv_inv,
+                           g_v + torch.einsum("nba,b->na", H_Tv, dxi))
+        pred = 0.5 * ((dxi * (lam * dxi - g_red)).sum() + torch.where(
+            valid[:, None], dv * (lam * dv - g_v), torch.zeros_like(dv)).sum())
+        return dxi, dv, pred
+
+    T, f, d = T_init, flow_meas, depth_meas
+    Fv, _ = robust_objective(T, f, d)
+    z0 = torch.clamp(depth_meas, min=1e-3)
+    seed = torch.where(valid, p.reproj_info * ((fx / z0) ** 2 + (fy / z0) ** 2),
+                       torch.zeros_like(z0))
+    lam = p.tau * torch.clamp(seed.max(), min=1.0)
+    nu = torch.full_like(lam, 2.0)
+    for _ in range(p.iters):
+        dxi, dv, pred = build(T, f, d, lam)
+        T_new = se3.exp_se3(dxi) @ T
+        f_new = f + dv[:, :2]
+        d_new = torch.clamp(d + dv[:, 2], min=1e-3)
+        F_new, _ = robust_objective(T_new, f_new, d_new)
+        accept = (F_new < Fv) & torch.isfinite(F_new)
+        gain = (Fv - F_new) / torch.clamp(pred, min=1e-20)
+        lam_acc = lam * torch.clamp(1.0 - (2.0 * gain - 1.0) ** 3, min=1.0 / 3.0)
+        done = (accept & (Fv - F_new < p.rel_tol * Fv + 1e-10)) | (lam > 1e8)
+        T = torch.where(accept, T_new, T)
+        f = torch.where(accept, f_new, f)
+        d = torch.where(accept, d_new, d)
+        Fv = torch.where(accept, F_new, Fv)
+        lam = torch.where(accept, lam_acc, lam * nu)
+        nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+        if bool(done):
+            break
+    _, chi2 = robust_objective(T, f, d)
+    inliers = valid & (chi2 <= p.rp_thres)
+    n_in = inliers.sum()
+    mean_reproj = (torch.where(inliers, torch.sqrt(chi2), torch.zeros_like(chi2)).sum()
+                   / torch.clamp(n_in, min=1))
+    return FlowBAResult(T=T, flow=f, chi2=chi2, inliers=inliers, n_inliers=n_in,
+                        mean_reproj=mean_reproj)

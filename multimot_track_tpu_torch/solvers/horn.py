@@ -3,7 +3,8 @@
 Port of ``multimot_track_tpu.solvers.horn.rigid_align``: the dominant
 eigenvector of Horn's symmetric 4x4 comes from 12 renormalised squarings
 plus 4 power steps, so every RANSAC hypothesis is a handful of batched 4x4
-products and det(R) = +1 by construction.
+products and det(R) = +1 by construction.  ``rigid_align_svd`` is the
+Arun / Kabsch SVD form, the reference the tests hold it to.
 """
 
 from __future__ import annotations
@@ -42,9 +43,9 @@ def _dominant_quat(N: torch.Tensor, squarings: int = 12, power_iters: int = 4) -
     return q
 
 
-def rigid_align(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor = None) -> torch.Tensor:
-    """Least-squares R, t with dst ~= R @ src + t.  src, dst: (..., N, 3);
-    w: optional (..., N) weights.  Returns (..., 4, 4)."""
+def _cross_covariance(src, dst, w):
+    """Weighted centroids (..., 3) of ``src`` and ``dst`` and the
+    cross-covariance (..., 3, 3) of the centred sets."""
     if w is None:
         w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
     wn = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-12)
@@ -52,7 +53,24 @@ def rigid_align(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor = None) ->
     cd = (dst * wn[..., None]).sum(-2)
     s0 = src - cs[..., None, :]
     d0 = dst - cd[..., None, :]
-    H = (wn[..., :, None, None] * s0[..., :, None] * d0[..., None, :]).sum(-3)
+    return cs, cd, (wn[..., :, None, None] * s0[..., :, None] * d0[..., None, :]).sum(-3)
+
+
+def _pose(R, cs, cd):
+    """(..., 4, 4) of the rotation ``R`` and the translation taking the
+    centroid ``cs`` onto ``cd``."""
+    t = cd - (R @ cs[..., None])[..., 0]
+    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def rigid_align(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor = None) -> torch.Tensor:
+    """Least-squares R, t with dst ~= R @ src + t.  src, dst: (..., N, 3);
+    w: optional (..., N) weights.  Returns (..., 4, 4)."""
+    cs, cd, H = _cross_covariance(src, dst, w)
     Sxx, Sxy, Sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     Syx, Syy, Syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     Szx, Szy, Szz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
@@ -65,10 +83,16 @@ def rigid_align(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor = None) ->
         ],
         -2,
     )
-    R = _quat_to_rot(_dominant_quat(N))
-    t = cd - (R @ cs[..., None])[..., 0]
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    return _pose(_quat_to_rot(_dominant_quat(N)), cs, cd)
+
+
+def rigid_align_svd(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor = None) -> torch.Tensor:
+    """Arun / Kabsch SVD form of ``rigid_align`` (a reference for tests):
+    the rotation from the cross-covariance's SVD, with a reflection folded
+    into the last singular direction."""
+    cs, cd, H = _cross_covariance(src, dst, w)
+    U, _, Vt = torch.linalg.svd(H)
+    V, Ut = Vt.transpose(-1, -2), U.transpose(-1, -2)
+    D = torch.diag_embed(torch.ones(H.shape[:-1], dtype=H.dtype, device=H.device))
+    D[..., 2, 2] = torch.linalg.det(V @ Ut)
+    return _pose(V @ D @ Ut, cs, cd)

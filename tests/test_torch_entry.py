@@ -6,9 +6,10 @@ sequence modules running without jax, PIL or PyYAML.
   --quad-stereo --discover-objects`` (tests/test_cli.py's images-only
   stereo tree) and ``--tum``: exit 0, the per-frame lines, and the JAX
   CLI's summary keys (plus ``n_quad_matched`` under the quad gate);
-* ``--viz`` raises, naming its ROADMAP item; ``--mono`` and ``--euroc``
-  run and write their trajectory (tests/test_torch_entry_mono.py holds
-  them to the JAX CLI);
+* ``--out`` writes ``traj.png``, and ``--viz --out`` each frame's
+  ``speed_%06d.png`` (tests/test_torch_render.py holds the drawings to the
+  JAX package's); ``--mono`` and ``--euroc`` run and write their
+  trajectory (tests/test_torch_entry_mono.py holds them to the JAX CLI);
 * a subprocess with ``jax``, ``PIL`` and ``yaml`` blocked in
   ``sys.modules`` imports every module of the port and drives the CLI.
 
@@ -31,6 +32,7 @@ from PIL import Image
 from multimot_track_tpu import config as jconfig
 from multimot_track_tpu.pipeline.system import MultiMotSystem as JSystem
 from multimot_track_tpu_torch import cli
+from multimot_track_tpu_torch.io.png import read_png
 from multimot_track_tpu_torch.io.synth import (
     SYNTH_CAM, make_multimover_frames, write_euroc_tree, write_kitti_tree, write_tum_tree)
 
@@ -56,7 +58,7 @@ def kitti03_yaml(cam) -> str:
 def run_cli(capsys, argv):
     assert cli.main(argv) == 0
     out = capsys.readouterr().out
-    return out, json.loads(out.split("summary:", 1)[1].split("\ntraj.png", 1)[0])
+    return out, json.loads(out.split("summary:", 1)[1].split("\nresults written", 1)[0])
 
 
 def test_cli_rgbd(tmp_path, capsys, frames, jax_summary_keys):
@@ -67,9 +69,11 @@ def test_cli_rgbd(tmp_path, capsys, frames, jax_summary_keys):
     assert out.count("cam RPE") == 2 and "obj label=" in out
     assert set(s) == jax_summary_keys and s["n_frames"] == 3
     assert s["cam_t_rpe_rel_mean"] < 0.05 and s["ego_ate_rmse_m"] < 0.1
-    assert "traj.png not written" in out and "ROADMAP item 23" in out
+    assert f"results written to {out_dir}" in out
     assert (out_dir / "camera_pose.txt").exists() and (out_dir / "object_motion.txt").exists()
-    assert not (out_dir / "traj.png").exists()
+    traj = read_png(out_dir / "traj.png")
+    assert traj.shape == (800, 800, 3) and (traj != 255).any()
+    assert not list(out_dir.glob("speed_*.png"))
 
 
 STEREO_CAM = dict(fx=300.0, fy=300.0, cx=160.0, cy=48.0, bf=120.0, width=320, height=96)
@@ -116,13 +120,22 @@ def test_cli_tum(tmp_path, capsys, frames, jax_summary_keys):
 @pytest.mark.parametrize("flag,item", [("--mono", "item 19"), ("--euroc", "item 19"),
                                        ("--viz", "item 23")])
 def test_cli_refuses_unported_modes(tmp_path, frames, flag, item):
-    """``--viz`` (ROADMAP item 23) is refused.  The monocular modes of item
-    19 are ported: ``--mono`` over a KITTI tree and ``--euroc`` over an
+    """The modes of ROADMAP items 19 and 23 are ported and refused no more:
+    ``--viz --out`` writes a ``speed_%06d.png`` per tracked frame and
+    ``traj.png``; ``--mono`` over a KITTI tree and ``--euroc`` over an
     EuRoC tree run on the CPU and write ``mono_trajectory.txt``
     (tests/test_torch_entry_mono.py holds them to the JAX CLI)."""
     if flag == "--viz":
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main([str(tmp_path), "--cpu", flag])
+        root = write_kitti_tree(tmp_path / "seq", frames[:2])
+        (root / "kitti03.yaml").write_text(kitti03_yaml(SYNTH_CAM))
+        out = tmp_path / "out"
+        assert cli.main([str(root), "--cpu", flag, "--out", str(out), "--no-loop-closing"]) == 0
+        speed = sorted(p.name for p in out.glob("speed_*.png"))
+        assert speed == ["speed_000001.png"], speed
+        img = read_png(out / speed[0])
+        assert img.shape == (SYNTH_CAM["height"], SYNTH_CAM["width"], 3)
+        assert (img[..., 0] != img[..., 1]).any()        # coloured boxes on the gray frame
+        assert read_png(out / "traj.png").shape == (800, 800, 3)
         return
     if flag == "--mono":
         root = write_kitti_tree(tmp_path / "seq", frames[:2], flow=False)

@@ -233,3 +233,30 @@ def test_stereo_tree_writer_copy_identical(tmp_path):
             np.testing.assert_array_equal(np.asarray(Image.open(b)), np.asarray(Image.open(a)))
         else:
             assert a.read_bytes() == b.read_bytes(), name
+
+
+@pytest.mark.parametrize("scene", ["circuit", "avenue"])
+def test_synth_copy_circuit_and_avenue_bit_identical(scene):
+    """The long-sequence scenes (two frames of each at the KITTI camera)."""
+    make = {"circuit": "make_circuit_frames", "avenue": "make_avenue_frames"}[scene]
+    _frames_equal(getattr(tsynth, make)(n_frames=2), getattr(jsynth, make)(n_frames=2))
+
+
+def test_synth_build_copy_identical(tmp_path):
+    """``build`` replays a KITTI directory forward then reversed: both
+    packages' copies give the same file tree (links to the same sources),
+    poses, times and object rows."""
+    frames = tsynth.make_multimover_frames(n_frames=3)
+    src = tsynth.write_kitti_tree(tmp_path / "src", frames)
+    rows = [f"{i} 1 " + " ".join(["0.5"] * 12) for i in range(3)]
+    (src / "object_pose.txt").write_text("\n".join(rows) + "\n")
+    n_t = tsynth.build(src, tmp_path / "port", include_objects=True)
+    n_j = jsynth.build(src, tmp_path / "jax", include_objects=True)
+    assert n_t == n_j == 5
+    files = sorted(p.relative_to(tmp_path / "jax") for p in (tmp_path / "jax").rglob("*")
+                   if p.is_file())
+    assert files == sorted(p.relative_to(tmp_path / "port")
+                           for p in (tmp_path / "port").rglob("*") if p.is_file())
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+    assert tsynth.build(src, tmp_path / "order", order=[2, 0]) == 2
