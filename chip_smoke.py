@@ -182,11 +182,37 @@ Phases, in order; any failure exits non-zero before the result lines:
      as a KITTI tree: speed_000001-3.png at 1242x375 and a traj.png with
      drawn pixels, read back with ``io/png.read_png``.
      ``--surface-only`` runs phases 1, 2 and 13.
-Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12 and 13, one JSON
+  14. parallel/ on torch.distributed, at DEFAULT_CONFIG.  (a) One rank
+     over NCCL (``multihost.initialize`` on 127.0.0.1 at a free port; the
+     only NCCL world one card allows): ``global_pair_batch`` on the (1, 1)
+     ("host", "pair") mesh and the pair-sharded ``batch.track_pairs`` on
+     phase 4's 11 junction pairs, with ``SiteSampler`` (draws by site), then
+     the gathered result: Tcw_cur within 1e-6 of the single-process
+     ``track_pairs`` on the same draws, K1 launches > 0, ms per pair.  Then
+     ``pairwise.shard_pairs`` and ``solve_relative_batch`` on the same
+     pairs' static points (K1 at M = 11, N = n_static_max) and
+     ``compose_trajectory``: T_rel within K1's contract (T_ATOL) of the same
+     call on the plain flow-BA (``flow_ba_backend="torch"``), K1 launches
+     > 0, ms a batch.
+     (b) ``make_distributed_flow_ba`` over NCCL at N = 2048, 4096 and
+     1,048,576 (seeded camera problems): within 5e-4 of the plain
+     ``solve_flow_ba`` at the same iterations with no early stop, exactly
+     4 * iters + 2 all-reduces a solve, ms a solve.  (c)
+     ``make_distributed_window_ba`` over NCCL at F = 5, N = 2048 and 65,536:
+     within 2e-3 of ``solve_window_ba`` on the card, ms a solve.  (d) Two
+     ranks on the one card over gloo (two processes of this script with
+     ``--parallel-rank``): (b) at N = 2048 as 1024 + 1024 points and (a),
+     the tracker and ``solve_relative_batch``, with 6 + 5 pairs, each
+     within 5e-4 of the one-rank result; gloo's
+     route for CUDA tensors goes through host memory, and the collectives
+     so staged are printed.  ``--parallel-only`` runs phases 1, 2 and 14.
+Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13 and 14, one JSON
 line of kernel figures (K1's launches from the synchronous live run, K2's
 from it and, as ``mono_launches``, from phase 12's 8 frames with the
-backend on; as ``circuit_launches``, each kernel's from phase 13(a)), the
-nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
+backend on; as ``circuit_launches``, each kernel's from phase 13(a); as
+``parallel_launches`` and ``pairwise_launches``, K1's from phase 14(a)'s
+tracker and its ``solve_relative_batch``), the nvidia-smi line, and
+the final ``{"ok": true, "device": ...}`` line.
 Imports nothing of JAX.
 """
 
@@ -208,6 +234,10 @@ NATIVE = ("graphcut", "png_unfilter")
 ENTRY_DIR = os.path.join(REPO, "build", "scratch", "entry")
 LOG_DIR = os.path.join(REPO, "build", "scratch", "smoke_logs")  # default of --logs
 STEREO_N, TUM_N, SERVE_N = 14, 6, 4     # phase 11's stereo, TUM and served frames
+PARALLEL_FLOW_N = (2048, 4096, 1 << 20)  # phase 14(b): the path's point sets and a large one
+PARALLEL_WINDOW_N = (2048, 65536)       # phase 14(c), at the live window's F = 5
+PARALLEL_SPLIT = (6, 5)                 # phase 14(d): pairs a rank
+PARALLEL_TOL = 5e-4                     # ranks against one rank (tests/test_multiprocess.py)
 
 # K1 contract with its plain version (the Pallas-vs-XLA contract of the JAX
 # package, tests/test_flow_ba_pallas.py): float32 sums in another order
@@ -2350,6 +2380,381 @@ def phase_surface(dev, log_dir):
     return fig
 
 
+class SiteSampler:
+    """Phase 14's hypothesis sampler: draws that depend on the site alone.
+    Each row draws as ``MultinomialSampler`` does, from a generator on the
+    row's device seeded with the CRC-32 of its site, so a pair draws the
+    same on any rank and in any batch."""
+
+    def __call__(self, p, iters, sites, k=3):
+        import zlib
+
+        import torch
+
+        p = torch.where(p.sum(-1, keepdim=True) <= 0, torch.ones_like(p), p)
+        rows = []
+        for m, site in enumerate(sites):
+            g = torch.Generator(device=p.device).manual_seed(zlib.crc32(repr(site).encode()))
+            rows.append(torch.multinomial(p[m], iters * k, replacement=True, generator=g))
+        return torch.stack(rows).view(len(sites), iters, k)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_pairs(frames, cfg, dev):
+    """The pair batch of ``frames``: (previous observations, current gray,
+    disparity, labels, GT), the frontend run on ``dev``."""
+    from multimot_track_tpu_torch.pipeline import batch
+    from multimot_track_tpu_torch.pipeline.frames import tree_map
+
+    g, d, f, s, gt = batch.upload_frames(frames, cfg, dev)
+    obs = batch.frontend_batch(g, d, f, s, gt, cfg)
+    return (tree_map(lambda x: x[:-1], obs), g[1:], d[1:], s[1:], tree_map(lambda x: x[1:], gt))
+
+
+def relative_inputs(pairs, cfg):
+    """The static points of ``parallel_pairs``' batch as
+    ``pairwise.solve_relative_batch`` takes them: (st_uv, st_flow,
+    st_depth, st_cur_uv, st_cur_depth, st_valid), built by
+    ``frames.build_pair`` as ``batch.track_pairs`` builds them."""
+    import torch
+
+    from multimot_track_tpu_torch.pipeline import batch, frames as F
+
+    prev, g, d, s, gt = pairs
+    w = cfg.camera.width
+    p = F.build_pair(prev, batch._decode_depth(d, w), batch._decode_sem(s, w), gt, cfg,
+                     cur_gray=g.to(torch.float32))
+    return (p.st_uv, p.st_flow, p.st_depth, p.st_cur_uv, p.st_cur_depth, p.st_valid)
+
+
+def sharded_relative(mesh, local_rel, cfg):
+    """This rank's pairs' static points through
+    ``pairwise.solve_relative_batch`` at their global indices; returns
+    (the gathered T_rel, the LocalRows)."""
+    from multimot_track_tpu_torch.parallel import multihost, pairwise
+
+    rows = multihost.global_pair_batch(mesh, local_rel)
+    T = pairwise.solve_relative_batch(SiteSampler(), rows.rows, *rows.tree, cfg)
+    return rows.gather(T), rows
+
+
+def sharded_tracker(mesh, local_pairs, cfg):
+    """This rank's pairs through ``batch.track_pairs`` at their global
+    indices; returns (the gathered PairResult, the LocalRows)."""
+    from multimot_track_tpu_torch.parallel import multihost
+    from multimot_track_tpu_torch.pipeline import batch
+
+    rows = multihost.global_pair_batch(mesh, local_pairs)
+    res = batch.track_pairs(*rows.tree, cfg, SiteSampler(), rows.rows)
+    return rows.gather(res), rows
+
+
+def camera_flow_params():
+    from multimot_track_tpu_torch.config import SolverConfig
+    from multimot_track_tpu_torch.solvers.flow_ba import FlowBAParams
+
+    sol = SolverConfig()
+    return FlowBAParams(reproj_info=sol.reproj_info, prior_info=sol.cam_flow_prior_info,
+                        rp_thres=sol.cam_rp_thres, iters=sol.cam_lm_iters, tau=sol.lm_tau)
+
+
+def window_problem(rng, F, N, cam):
+    """A window as tests/test_window_ba.make_window builds it: N tracks
+    5-35 m deep seen from F poses ~1.2 m apart, 0.1 px noise, initial poses
+    perturbed by 2 cm / 2 mrad, depths by 5 %."""
+    import torch
+
+    from multimot_track_tpu_torch.geometry import camera, se3
+
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    c = (cam.fx, cam.fy, cam.cx, cam.cy)
+    uv0 = rng.uniform([80, 40], [cam.width - 80, cam.height - 40], (N, 2))
+    z = rng.uniform(5.0, 35.0, N)
+    X = camera.backproject(t(uv0), t(z), *c)
+    poses, uv, alive = [np.eye(4, dtype=np.float32)], [uv0], [np.ones(N, bool)]
+    for f in range(1, F):
+        xi = np.concatenate([rng.normal(scale=0.003, size=3),
+                             [0.01 * f, 0.005 * f, 1.2 * f + rng.normal(scale=0.01)]])
+        poses.append(se3.exp_se3(t(xi)).numpy())
+        u = camera.project(se3.transform(t(poses[-1]), X), *c).numpy()
+        u = u + rng.normal(scale=0.1, size=u.shape)
+        uv.append(u)
+        alive.append((u[:, 0] > 5) & (u[:, 0] < cam.width - 5) & (u[:, 1] > 5)
+                     & (u[:, 1] < cam.height - 5))
+    init = [np.eye(4, dtype=np.float32)] + [
+        se3.exp_se3(t(np.concatenate([rng.normal(scale=0.002, size=3),
+                                      rng.normal(scale=0.02, size=3)]))).numpy() @ P
+        for P in poses[1:]]
+    z_meas = z * (1 + rng.normal(scale=0.05, size=N))
+    return t(np.stack(init)), t(np.stack(uv)), torch.from_numpy(np.stack(alive)), t(z_meas)
+
+
+def parallel_rank(argv) -> int:
+    """One gloo rank of phase 14(d): ``--parallel-rank RANK WORLD PORT DATA OUT``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from multimot_track_tpu_torch.parallel import dist_ba, mesh as meshmod, multihost
+    from multimot_track_tpu_torch.pipeline.frames import tree_map
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    rank, world, port = int(argv[0]), int(argv[1]), int(argv[2])
+    data, out = argv[3], argv[4]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize(f"tcp://127.0.0.1:{port}", world, rank, local_device_ids=[0],
+                         device="cuda", backend="gloo", timeout_s=300)
+    try:
+        job = torch.load(data, weights_only=False)
+        pm = meshmod.make_mesh(world, meshmod.POINT_AXIS)
+        dev = pm.device
+        fb = job["flow"]
+        n = fb["obs"].shape[0] // world
+        shard = lambda x: x[rank * n:(rank + 1) * n].to(dev)
+        solve = dist_ba.make_distributed_flow_ba(pm, job["params"], *fb["cam"])
+        eye = torch.eye(4, device=dev)
+        T = solve(eye, eye, shard(fb["obs"]), shard(fb["flow_meas"]), shard(fb["depth"]),
+                  shard(fb["valid"]))
+        hm = multihost.make_process_mesh()
+        split = job["split"]
+        lo = sum(split[:rank])
+        mine = lambda x: x[lo:lo + split[rank]]
+        solve_flow_ba_cuda.launches = 0
+        t0 = time.perf_counter()
+        whole, rows = sharded_tracker(hm, tree_map(mine, job["pairs"]), job["cfg"])
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        k1 = solve_flow_ba_cuda.launches
+        solve_flow_ba_cuda.launches = 0
+        T_rel, rel_rows = sharded_relative(hm, tree_map(mine, job["rel"]), job["cfg"])
+        torch.save(dict(T=T.cpu(), Tcw=whole.Tcw_cur.cpu(), rows=rows.rows,
+                        T_rel=T_rel.cpu(), rel_rows=rel_rows.rows,
+                        k1=k1, k1_rel=solve_flow_ba_cuda.launches, tracker_s=secs,
+                        backend=dist.get_backend(), flow_counts=dict(pm.counts),
+                        tracker_counts=dict(hm.counts)), out)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def phase_parallel(dev, frames):
+    """Phase 14 (see the module docstring)."""
+    import dataclasses
+    import shutil
+    import torch
+    import torch.distributed as dist
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.parallel import dist_ba, dist_window_ba, mesh as meshmod
+    from multimot_track_tpu_torch.parallel import multihost, pairwise
+    from multimot_track_tpu_torch.pipeline import batch
+    from multimot_track_tpu_torch.pipeline.frames import tree_map
+    from multimot_track_tpu_torch.solvers.flow_ba import solve_flow_ba
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+    from multimot_track_tpu_torch.solvers.window_ba import WindowBAParams, solve_window_ba
+
+    cfg = DEFAULT_CONFIG
+    fig = {}
+    if not multihost.initialize(f"tcp://127.0.0.1:{free_port()}", 1, 0, timeout_s=300):
+        raise SystemExit("parallel: the process group did not come up")
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise SystemExit(f"parallel: the card's ranks run over {backend}, not NCCL")
+
+        # (a) the pair-sharded tracker, one rank
+        pairs = parallel_pairs(frames, cfg, dev)
+        n_pairs = int(pairs[1].shape[0])
+        single = batch.track_pairs(*pairs, cfg, SiteSampler(), list(range(n_pairs)))
+        hm = multihost.make_process_mesh()
+        sharded_tracker(hm, pairs, cfg)                      # warm-up
+        torch.cuda.synchronize(dev)
+        ts = []
+        for _ in range(3):
+            hm.counts.clear()
+            solve_flow_ba_cuda.launches = 0
+            t0 = time.perf_counter()
+            whole, rows = sharded_tracker(hm, pairs, cfg)
+            torch.cuda.synchronize(dev)
+            ts.append(time.perf_counter() - t0)
+            k1 = solve_flow_ba_cuda.launches
+        dT = float((whole.Tcw_cur - single.Tcw_cur).abs().max())
+        ms_pair = 1e3 * float(np.median(ts)) / n_pairs
+        log(f"[parallel tracker] NCCL, mesh {hm.shape}, rows {rows.rows}: {ms_pair:.2f} ms/pair "
+            f"(host clock, median of 3), K1 {k1}, collectives {dict(hm.counts)}, max|dTcw| vs "
+            f"single-process {dT:.3e} (tol 1e-6)")
+        if not (k1 > 0 and dT <= 1e-6 and bool(torch.isfinite(whole.Tcw_cur).all())
+                and whole.Tcw_cur.shape == (n_pairs, 4, 4)):
+            raise SystemExit("parallel: the pair-sharded tracker disagrees or ran no K1")
+        fig["tracker"] = dict(pairs=n_pairs, ms_per_pair=ms_pair, k1_launches=k1,
+                              max_abs_err=dT, collectives=dict(hm.counts))
+
+        # (a) the batched relative solves of the same pairs, sharded by shard_pairs
+        rel = relative_inputs(pairs, cfg)
+        pm = meshmod.make_mesh(1, meshmod.PAIR_AXIS)
+        plain_cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, flow_ba_backend="torch"))
+
+        def solve_rel(c):
+            mine = pairwise.shard_pairs(pm, rel)
+            return mine.gather(pairwise.solve_relative_batch(SiteSampler(), mine.rows,
+                                                             *mine.tree, c))
+
+        solve_flow_ba_cuda.launches = 0
+        T_rel = solve_rel(cfg)
+        torch.cuda.synchronize(dev)
+        k1_rel = solve_flow_ba_cuda.launches
+        dT_rel = float((T_rel - solve_rel(plain_cfg)).abs().max())
+        traj = pairwise.compose_trajectory(T_rel)
+        ms_rel = time_ms(lambda: solve_rel(cfg), rounds=3, reps=2)
+        ms_rel_plain = time_ms(lambda: solve_rel(plain_cfg), rounds=1, reps=2)
+        log(f"[parallel pairwise] solve_relative_batch, M = {n_pairs}, N = "
+            f"{int(rel[0].shape[1])}: {ms_rel:.3f} ms a batch (CUDA events), on the plain "
+            f"flow-BA {ms_rel_plain:.3f} ms; K1 {k1_rel}; max|dT_rel| K1 vs plain {dT_rel:.3e} "
+            f"(atol {T_ATOL}); composed trajectory {tuple(traj.shape)}")
+        if not (k1_rel > 0 and dT_rel <= T_ATOL and bool(torch.isfinite(traj).all())
+                and traj.shape == (n_pairs + 1, 4, 4)):
+            raise SystemExit("parallel: solve_relative_batch disagrees with its plain "
+                             "flow-BA or ran no K1")
+        fig["pairwise"] = dict(pairs=n_pairs, points=int(rel[0].shape[1]), ms=ms_rel,
+                               plain_ms=ms_rel_plain, k1_launches=k1_rel, max_abs_err=dT_rel)
+
+        # (b) the point-sharded flow-BA, one rank
+        params = camera_flow_params()
+        rng = np.random.default_rng(14)
+        eye = torch.eye(4, device=dev)
+        fig["flow_ba"] = []
+        flow_2048 = None
+        for N in PARALLEL_FLOW_N:
+            prob = make_flow_ba_problem(rng, 1, N, np.array([0.004, 0.004, 0.004, 0.1, 0.05, 0.5]))
+            a = {k: prob[k][0].to(dev) for k in ("obs", "flow_meas", "depth", "valid")}
+            cam = (prob["fx"], prob["fy"], prob["cx"], prob["cy"])
+            pm = meshmod.make_mesh(1, meshmod.POINT_AXIS)
+            solve = dist_ba.make_distributed_flow_ba(pm, params, *cam)
+            run = lambda: solve(eye, eye, a["obs"], a["flow_meas"], a["depth"], a["valid"])
+            T = run()
+            torch.cuda.synchronize(dev)
+            n_ar = pm.counts["all_reduce"]
+            plain = lambda: solve_flow_ba(
+                eye[None], eye[None], a["obs"][None], a["flow_meas"][None], a["depth"][None],
+                a["valid"][None], *cam, params=params._replace(rel_tol=0.0))
+            err = float((T - plain().T[0]).abs().max())
+            ms = time_ms(run, rounds=3, reps=2)
+            ms_plain = time_ms(plain, rounds=1, reps=2)
+            # a solve's all-reduces alone, and its 6x6 LU solves alone
+            H, g = torch.eye(6, device=dev), torch.ones(6, device=dev)
+            ms_ar = time_ms(lambda: [pm.all_reduce(H) for _ in range(n_ar)], rounds=3, reps=1)
+            ms_lu = time_ms(lambda: [torch.linalg.solve_ex(H, g) for _ in range(params.iters)],
+                            rounds=3, reps=1)
+            log(f"[parallel flow-BA] N = {N}: {ms:.3f} ms/solve (CUDA events), plain "
+                f"solve_flow_ba {ms_plain:.3f} ms, {n_ar} all-reduces/solve (expect "
+                f"{4 * params.iters + 2}; alone {ms_ar:.3f} ms), its {params.iters} 6x6 LU "
+                f"solves alone {ms_lu:.3f} ms, max|dT| vs plain {err:.3e} (tol {PARALLEL_TOL})")
+            if not (err <= PARALLEL_TOL and n_ar == 4 * params.iters + 2
+                    and bool(torch.isfinite(T).all())):
+                raise SystemExit(f"parallel: the distributed flow-BA disagrees at N = {N}")
+            fig["flow_ba"].append(dict(N=N, ms=ms, plain_ms=ms_plain, all_reduces=n_ar,
+                                       all_reduces_ms=ms_ar, lu_ms=ms_lu, max_abs_err=err))
+            if N == 2048:                 # phase 14(d)'s problem and its one-rank answer
+                flow_2048 = ({k: prob[k][0] for k in ("obs", "flow_meas", "depth", "valid")},
+                             T.cpu())
+                flow_2048[0]["cam"] = cam
+
+        # (c) the track-sharded window BA, one rank
+        wp = WindowBAParams(iters=cfg.backend.window_ba_iters)
+        c = cfg.camera
+        fig["window_ba"] = []
+        for N in PARALLEL_WINDOW_N:
+            init, uv, alive, z = (x.to(dev) for x in window_problem(rng, 5, N, c))
+            pm = meshmod.make_mesh(1, meshmod.POINT_AXIS)
+            solve = dist_window_ba.make_distributed_window_ba(pm, wp, c.fx, c.fy, c.cx, c.cy)
+            run = lambda: solve(init, uv, alive, z)
+            poses, rho = run()
+            n_ar = pm.counts["all_reduce"]
+            ref = solve_window_ba(init, uv, alive, z, c.fx, c.fy, c.cx, c.cy, params=wp)
+            err = max(float((poses - ref.poses).abs().max()),
+                      float((rho - ref.inv_depth).abs().max()))
+            ms = time_ms(run, rounds=3, reps=2)
+            ms_plain = time_ms(lambda: solve_window_ba(init, uv, alive, z, c.fx, c.fy, c.cx,
+                                                       c.cy, params=wp), rounds=1, reps=2)
+            log(f"[parallel window BA] F = 5, N = {N}: {ms:.3f} ms/solve (CUDA events), plain "
+                f"solve_window_ba {ms_plain:.3f} ms, {n_ar} all-reduces/solve, "
+                f"max|d| vs solve_window_ba {err:.3e} (tol 2e-3)")
+            if not (err <= 2e-3 and bool(torch.isfinite(poses).all())):
+                raise SystemExit(f"parallel: the distributed window BA disagrees at N = {N}")
+            fig["window_ba"].append(dict(N=N, ms=ms, plain_ms=ms_plain, all_reduces=n_ar,
+                                         max_abs_err=err))
+    finally:
+        multihost.shutdown()
+
+    # (d) two ranks on the one card over gloo
+    work = os.path.join(REPO, "build", "scratch", "parallel")
+    os.makedirs(work, exist_ok=True)
+    data = os.path.join(work, "job.pt")
+    cpu = lambda x: x.cpu()
+    torch.save(dict(pairs=tree_map(cpu, pairs), rel=tree_map(cpu, rel), cfg=cfg,
+                    params=params, split=PARALLEL_SPLIT, flow=flow_2048[0]), data)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    try:
+        for r in range(2):
+            logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--parallel-rank", str(r), "2",
+                 str(port), data, os.path.join(work, f"rank{r}.pt")],
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        for r, pr in enumerate(procs):
+            pr.wait(timeout=400)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    outs = []
+    for r, pr in enumerate(procs):
+        if pr.returncode != 0:
+            tail = open(os.path.join(work, f"rank{r}.log")).read()[-3000:]
+            raise SystemExit(f"parallel: gloo rank {r} exited {pr.returncode}:\n{tail}")
+        outs.append(torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False))
+    d_flow = max(float((o["T"] - flow_2048[1]).abs().max()) for o in outs)
+    d_trk = max(float((o["Tcw"] - whole.Tcw_cur.cpu()).abs().max()) for o in outs)
+    d_rel = max(float((o["T_rel"] - T_rel.cpu()).abs().max()) for o in outs)
+    staged = sorted({k for o in outs for cnt in (o["flow_counts"], o["tracker_counts"])
+                     for k in cnt if k.startswith("staged")})
+    log(f"[parallel gloo x2] ranks {[o['backend'] for o in outs]} on {dev}: flow-BA 1024 + "
+        f"1024 points max|dT| vs one rank {d_flow:.3e}; tracker rows {[o['rows'] for o in outs]} "
+        f"max|dTcw| vs one rank {d_trk:.3e}; solve_relative_batch rows "
+        f"{[o['rel_rows'] for o in outs]} max|dT_rel| vs one rank {d_rel:.3e} (tol "
+        f"{PARALLEL_TOL}); K1 {[o['k1'] for o in outs]} / {[o['k1_rel'] for o in outs]}; "
+        f"staged through host memory: {staged} (flow-BA {outs[0]['flow_counts']}, tracker "
+        f"{outs[0]['tracker_counts']}); {secs:.1f} s for both processes")
+    want_rows = [list(range(6)), list(range(6, 11))]
+    ok_rows = [o["rows"] for o in outs] == want_rows == [o["rel_rows"] for o in outs]
+    if not (d_flow <= PARALLEL_TOL and d_trk <= PARALLEL_TOL and d_rel <= PARALLEL_TOL
+            and ok_rows and all(o["k1"] > 0 and o["k1_rel"] > 0 and o["backend"] == "gloo"
+                                for o in outs)):
+        raise SystemExit("parallel: the two gloo ranks disagree with one rank")
+    fig["gloo_2"] = dict(flow_max_abs_err=d_flow, tracker_max_abs_err=d_trk,
+                         pairwise_max_abs_err=d_rel, staged=staged,
+                         k1_launches=[o["k1"] for o in outs],
+                         pairwise_k1_launches=[o["k1_rel"] for o in outs], seconds=secs,
+                         tracker_s=[o["tracker_s"] for o in outs])
+    shutil.rmtree(work, ignore_errors=True)
+    return fig
+
+
 def main(argv) -> int:
     import torch
 
@@ -2392,6 +2797,10 @@ def main(argv) -> int:
     if "--surface-only" in argv:            # phases 1, 2 and 13 alone, no result lines
         log(json.dumps({"surface": phase_surface(dev, log_dir)}, default=float))
         return 0
+    if "--parallel-only" in argv:           # phases 1, 2 and 14 alone, no result lines
+        frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
+        log(json.dumps({"parallel": phase_parallel(dev, frames)}))
+        return 0
     if "--entry-only" in argv:              # phases 1, 2 and 11 alone, no result lines
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
@@ -2424,6 +2833,8 @@ def main(argv) -> int:
     log(json.dumps({"mono": mono}, default=float))
     surface = phase_surface(dev, log_dir)
     log(json.dumps({"surface": surface}, default=float))
+    parallel = phase_parallel(dev, frames)
+    log(json.dumps({"parallel": parallel}))
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{
@@ -2433,6 +2844,8 @@ def main(argv) -> int:
         "replaces": "multimot_track_tpu/solvers/flow_ba_pallas.py:372",
         "launches": live["k1_launches"],
         "circuit_launches": surface["circuit"]["k1_launches"],
+        "parallel_launches": parallel["tracker"]["k1_launches"],
+        "pairwise_launches": parallel["pairwise"]["k1_launches"],
         "max_abs_err": max(f["max_abs_err"] for f in k1),
         "ms": obj["ms"],
         "plain_ms": obj["plain_ms"],
@@ -2462,4 +2875,6 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:     # one rank of phase 14(d)
+        sys.exit(parallel_rank(sys.argv[2:]))
     sys.exit(main(sys.argv[1:]))

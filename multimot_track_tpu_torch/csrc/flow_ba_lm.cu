@@ -669,9 +669,6 @@ size_t smem_bytes() { return (size_t)kPlanes * held_points<P>() * sizeof(float);
 
 template <int P>
 int launch(const Args& a, int m, int cluster, cudaStream_t stream) {
-  // whether the card can co-schedule this cluster shape, asked once per shape
-  static int schedulable[4] = {0, 0, 0, 0};      // 0 unknown, 1 yes, -1 no
-  const int ci = cluster == 1 ? 0 : cluster == 2 ? 1 : cluster == 4 ? 2 : 3;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -684,13 +681,8 @@ int launch(const Args& a, int m, int cluster, cudaStream_t stream) {
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if (schedulable[ci] == 0) {
-    int n_clusters = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(&n_clusters, flow_ba_lm_kernel<P>, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    schedulable[ci] = n_clusters > 0 ? 1 : -1;
-  }
-  if (schedulable[ci] < 0) return (int)cudaErrorLaunchOutOfResources;
+  // a cluster shape the card cannot co-schedule fails here: that error is
+  // the refusal
   cudaError_t err = cudaLaunchKernelEx(&cfg, flow_ba_lm_kernel<P>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -737,8 +729,8 @@ int flow_ba_lm_ctas_per_sm(int p) {
 
 // Launch m clusters of `cluster` CTAs (1, 2, 4 or 8), `p` held points per
 // thread (1, 2, 4, 8 or 16), on `stream`.  Returns a CUDA error code
-// (0 = launched); cudaErrorLaunchOutOfResources if the card cannot
-// schedule the cluster (cudaOccupancyMaxActiveClusters is 0).
+// (0 = launched); a cluster the card cannot schedule is the launch's own
+// error.
 int flow_ba_lm_launch(const float* T_init, long long sT, const float* Twl, long long sW,
                       const float* obs, long long sO, const float* fm, long long sF,
                       const float* depth, long long sD, const uint8_t* valid, long long sV,

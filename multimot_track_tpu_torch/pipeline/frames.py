@@ -21,11 +21,16 @@ from multimot_track_tpu_torch.ops import photometric
 
 
 def tree_map(fn, *trees):
-    """Apply ``fn`` leafwise over nested NamedTuples of identical structure
-    (the pytree map the port's (B, ...) state needs)."""
+    """Apply ``fn`` leafwise over nested NamedTuples, tuples, lists and dicts
+    of identical structure; every other value is a leaf (the pytree map the
+    port's (B, ...) state and its pair batches need)."""
     t0 = trees[0]
     if isinstance(t0, tuple) and hasattr(t0, "_fields"):
         return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t0, (tuple, list)):
+        return type(t0)(tree_map(fn, *xs) for xs in zip(*trees))
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     return fn(*trees)
 
 

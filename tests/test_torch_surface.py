@@ -21,7 +21,6 @@ PORT_PKG = REPO / "multimot_track_tpu_torch"
 
 # whole modules not ported, by path (a trailing "/" covers a directory)
 WAITING_MODULES = {
-    "parallel/": "ROADMAP item 25: torch.distributed (the next bring-up)",
     "io/native_loader.py": "ROADMAP item 22: the card's machine has no libpng headers",
     "ops/pallas_match.py": "TPU kernel K2, replaced by csrc/match_projected.cu "
                            "(ops/match_cuda.py)",
