@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero before the result lines:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build kernels K1 (csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu)
      with nvcc and the host sources (native/graphcut.cc, the exact graph-cut
-     labeler; native/png_unfilter.cc, the PNG unfilter) with the host
-     compiler, all four started together; print the build times and the
+     labeler; native/png_unfilter.cc, the PNG unfilter; native/loader.cc,
+     the threaded KITTI loader with its own inflate) with the host
+     compiler, all five started together; print the build times and the
      compilers' register / shared-memory reports;
   3. K1 against its plain torch version on the card at the five path
      shapes (live camera 1 x 2048 and batched camera 11 x 2048 with point
@@ -24,7 +25,16 @@ Phases, in order; any failure exits non-zero before the result lines:
      reclassify rounds) on make_junction_frames(12) (7 movers per frame),
      once through the kernel (counting its launches) and once with the plain
      flow-BA, then ``run_sequence_streaming`` (chunk 4) once; ms per pair
-     after a warm-up, peak memory, per-pair camera and object errors;
+     after a warm-up, peak memory, per-pair camera and object errors.
+     (b) The streaming driver, which enqueues every chunk and drains once,
+     against a chunk-by-chunk loop of ``stream_chunk`` with a read-back
+     after each chunk, at the same generator seed: max |dTcw| must be 0,
+     and no host sync may happen between the driver's first dispatch and
+     its drain under ``torch.cuda.set_sync_debug_mode("error")`` (on a sync
+     the stacks of all of them are printed); ms/pair of both, alternated.
+     (c) After phase 14, the device's idle share of each from a profiled
+     run (last, because a profiler session over a whole run was seen to
+     make phase 5's kernel-count sessions lose a record);
   5. K2 against its plain torch version on the card at its path shapes:
      3 x 1024 local-map queries against 1024 keypoints (r = 12), the fuse
      scan's 4 x 1024 against 1024 (r = 6), the window tracks' 3072 against
@@ -115,10 +125,15 @@ Phases, in order; any failure exits non-zero before the result lines:
      removed afterwards), read back through ``KittiSequence``: frames equal
      to the rendered ones up to the 8-bit rounding; the native PNG unfilter
      equal to its plain version; ms per frame of PNG decode, .flo, mask
-     text and ``load_frame``.  (b) ``cli.run`` (the body
-     of ``cli.main``) on that tree at DEFAULT_CONFIG: K1 > 0, K2 ==
-     refinements + fuse scans, t-RPE < 0.05, ATE < 0.5 m, ms per frame
-     beside phase 6's.  (c) A 14-frame stereo tree at the KITTI camera
+     text and ``load_frame``; the loader's inflate against zlib on one
+     image; then through ``NativeKittiSequence`` (prefetch depth 4): depth,
+     flow, mask and ground truth equal to ``KittiSequence``'s, gray within
+     1e-4, and per frame the ms of each reader and the native consumer's
+     wait.  (b) ``cli.run`` (the body of ``cli.main``) on that tree at
+     DEFAULT_CONFIG, which reads it through ``NativeKittiSequence``: K1 > 0,
+     K2 == refinements + fuse scans, t-RPE < 0.05, ATE < 0.5 m; then the
+     same loop over ``KittiSequence`` (the same checks), ms per frame of
+     both beside phase 6's in-memory run.  (c) A 14-frame stereo tree at the KITTI camera
      through ``--stereo --discover-objects`` and ``--stereo --quad-stereo``
      (the same launch checks, quad matches > 0; accuracy reported: the LK
      flow loses frames 8-12 of that tree in the JAX package too);
@@ -206,7 +221,7 @@ Phases, in order; any failure exits non-zero before the result lines:
      within 5e-4 of the one-rank result; gloo's
      route for CUDA tensors goes through host memory, and the collectives
      so staged are printed.  ``--parallel-only`` runs phases 1, 2 and 14.
-Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13 and 14, one JSON
+Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13, 14 and 4(c), one JSON
 line of kernel figures (K1's launches from the synchronous live run, K2's
 from it and, as ``mono_launches``, from phase 12's 8 frames with the
 backend on; as ``circuit_launches``, each kernel's from phase 13(a); as
@@ -229,8 +244,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("flow_ba_lm", "match_projected")
 # native/<name>.cc, built with the host compiler: the exact graph-cut
-# labeler and the PNG unfilter
-NATIVE = ("graphcut", "png_unfilter")
+# labeler, the PNG unfilter and the threaded KITTI loader
+NATIVE = ("graphcut", "png_unfilter", "loader")
+STREAM_CHUNK = 4                        # phase 4's streaming chunk
 ENTRY_DIR = os.path.join(REPO, "build", "scratch", "entry")
 LOG_DIR = os.path.join(REPO, "build", "scratch", "smoke_logs")  # default of --logs
 STEREO_N, TUM_N, SERVE_N = 14, 6, 4     # phase 11's stereo, TUM and served frames
@@ -531,8 +547,8 @@ def phase_slice(dev, frames):
         raise SystemExit("camera RPE out of bounds")
 
     solve_flow_ba_cuda.launches = 0
-    Tcw_s, res_s, rec_s = batch.run_sequence_streaming(frames, cfg, seed=0, chunk=4,
-                                                       device=dev)
+    Tcw_s, res_s, rec_s = batch.run_sequence_streaming(frames, cfg, seed=0,
+                                                       chunk=STREAM_CHUNK, device=dev)
     log(f"[slice] streaming chunk 4: K1 launches {solve_flow_ba_cuda.launches}, "
         f"mean cam t-RPE {float(np.mean(res_s.cam_t_rpe_rel)):.5f}, "
         f"finite {bool(np.all(np.isfinite(Tcw_s)) and finite_tree(res_s))}")
@@ -556,6 +572,8 @@ def phase_slice(dev, frames):
         f"{host / n_pairs:.2f} ms/pair (host clock), {n_pairs} pairs, "
         f"peak {peak / 2**30:.3f} GiB")
 
+    stream = phase_streaming(dev, frames, res_s)
+
     ob = res_k.objects
     act = np.asarray(ob.active)
     for k in range(n_pairs):
@@ -565,7 +583,162 @@ def phase_slice(dev, frames):
             f"median obj t-RPE {float(np.median(trel)) if trel.size else float('nan'):.4f}")
     ids = sorted({r["track_id"] for r in rec_k})
     log(f"[slice] {len(rec_k)} object records, track ids {ids}")
-    return dict(launches=launches, ms_per_pair=ev / n_pairs, peak_bytes=peak)
+    return dict(launches=launches, ms_per_pair=ev / n_pairs, peak_bytes=peak, streaming=stream)
+
+
+def chained(T_rel) -> np.ndarray:
+    """The trajectory (F, 4, 4) of the relative poses (F - 1, 4, 4)."""
+    Tcw = [np.eye(4, dtype=np.float32)]
+    for T in T_rel:
+        Tcw.append((T @ Tcw[-1]).astype(np.float32))
+    return np.stack(Tcw)
+
+
+def stream_chunk_by_chunk(frames, cfg, dev):
+    """The streaming driver's steps one chunk after another: plain uploads,
+    ``stream_chunk``, a read-back after each chunk, with the driver's
+    default sampler at the same seed.  Returns the relative poses."""
+    import torch
+
+    from multimot_track_tpu_torch import state
+    from multimot_track_tpu_torch.pipeline import batch
+    from multimot_track_tpu_torch.solvers.ransac import MultinomialSampler
+
+    sampler = MultinomialSampler(torch.Generator(device=dev).manual_seed(0))
+    first, chunks = batch.stream_chunks(frames, cfg, STREAM_CHUNK)
+    up = lambda arrays: {k: torch.from_numpy(a).to(dev) for k, a in arrays.items()}
+    carry = batch.frontend_batch(*batch.chunk_inputs(up(first)), cfg)
+    T_rel = []
+    for pair_ids, arrays in chunks:
+        res, carry = batch.stream_chunk(carry, *batch.chunk_inputs(up(arrays)), cfg, sampler,
+                                        pair_ids)
+        T_rel.append(state.result_to_numpy(res).Tcw_cur)
+    return np.concatenate(T_rel)[:len(frames) - 1]
+
+
+def streaming_under_sync_check(dev, frames, cfg, mode):
+    """``run_sequence_streaming`` with ``torch.cuda.set_sync_debug_mode(mode)``
+    on from the uploader's creation (before the first dispatch) to the
+    drain.  In "warn" mode returns the stack of each sync it saw."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from multimot_track_tpu_torch import state
+    from multimot_track_tpu_torch.pipeline import batch
+
+    drain, uploader = state.result_to_numpy, batch.ChunkUploader
+    stacks = []
+
+    class Checked(uploader):
+        def __init__(self, device):
+            super().__init__(device)
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def checked_drain(res):
+        torch.cuda.set_sync_debug_mode(0)
+        return drain(res)
+
+    def record(message, *a, **kw):
+        if "called a synchronizing" in str(message):
+            stacks.append(f"{message}\n" + "".join(traceback.format_stack(limit=12)[:-1]))
+
+    batch.ChunkUploader, state.result_to_numpy = Checked, checked_drain
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            batch.run_sequence_streaming(frames, cfg, seed=0, chunk=STREAM_CHUNK, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        batch.ChunkUploader, state.result_to_numpy = uploader, drain
+    return stacks
+
+
+def idle_share(fn):
+    """One profiled call of ``fn``: (wall ms, the device's idle share of it),
+    the busy time being the union of the device events
+    (tools/torch_profile_slice.device_busy_ms)."""
+    import importlib.util
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_slice", os.path.join(REPO, "tools", "torch_profile_slice.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, _ = tool.device_busy_ms(prof)
+    return wall, 1 - busy / wall
+
+
+def phase_streaming(dev, frames, res_s):
+    """Phase 4(b): the overlapped streaming driver against the chunk-by-chunk
+    loop on the same draws, its sync check, ms/pair and idle share of both."""
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from multimot_track_tpu_torch.pipeline import batch
+
+    n_pairs = len(frames) - 1
+    T_chunked = stream_chunk_by_chunk(frames, cfg, dev)
+    d_T = float(np.abs(chained(res_s.Tcw_cur) - chained(T_chunked)).max())
+    log(f"[stream] overlapped run_sequence_streaming vs the chunk-by-chunk loop (chunk "
+        f"{STREAM_CHUNK}, same seed): max |dTcw| {d_T:.3e}")
+    if d_T != 0:
+        raise SystemExit("stream: the overlapped driver differs from the chunk-by-chunk loop")
+    try:
+        streaming_under_sync_check(dev, frames, cfg, "error")
+    except RuntimeError as e:
+        stacks = streaming_under_sync_check(dev, frames, cfg, "warn")
+        for st in stacks:
+            log(f"[stream] sync:\n{st}")
+        raise SystemExit(f"stream: {len(stacks)} host syncs between the first dispatch and "
+                         f"the drain ({e})")
+    log("[stream] no host sync between the first dispatch and the drain "
+        "(torch.cuda.set_sync_debug_mode('error'))")
+    overlapped = lambda: batch.run_sequence_streaming(frames, cfg, seed=0, chunk=STREAM_CHUNK,
+                                                      device=dev)
+    chunked = lambda: stream_chunk_by_chunk(frames, cfg, dev)
+    ms = {"overlapped": [], "chunk by chunk": []}
+    for _ in range(3):                      # alternated, after the runs above
+        for name, fn in (("overlapped", overlapped), ("chunk by chunk", chunked)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms[name].append(1e3 * (time.perf_counter() - t0) / n_pairs)
+    for name in ms:
+        log(f"[stream] {name}: {', '.join(f'{t:.2f}' for t in ms[name])} ms/pair (host clock, "
+            f"3 runs)")
+    return dict(max_abs_dTcw=d_T, **{name: dict(ms_per_pair=t) for name, t in ms.items()})
+
+
+def phase_streaming_idle(dev, frames):
+    """Phase 4(c), run after every other phase: one profiled run of the
+    overlapped driver and one of the chunk-by-chunk loop, and the device's
+    idle share of each.  It runs last because a profiler session over a
+    whole run was seen to make the next phase's kernel-count sessions
+    (phase 5) lose a record."""
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from multimot_track_tpu_torch.pipeline import batch
+
+    n_pairs = len(frames) - 1
+    out = {}
+    for name, fn in (("overlapped", lambda: batch.run_sequence_streaming(
+                         frames, cfg, seed=0, chunk=STREAM_CHUNK, device=dev)),
+                     ("chunk by chunk", lambda: stream_chunk_by_chunk(frames, cfg, dev))):
+        wall, idle = idle_share(fn)
+        out[name] = dict(profiled_ms_per_pair=wall / n_pairs, idle_share=idle)
+        log(f"[stream] {name}: profiled run {wall / n_pairs:.2f} ms/pair, idle share {idle:.3f}")
+    return out
 
 
 def make_match_problem(rng, L, N, M, radius):
@@ -1056,7 +1229,7 @@ class ReplaySampler:
         import torch
 
         rows = []
-        for m, site in enumerate(sites):
+        for m, site in enumerate(sites.names()):
             key = repr(tuple(site))
             self.seen[key] = self.seen.get(key, -1) + 1
             a = self.table.get(f"{key}#{self.seen[key]}")
@@ -1585,7 +1758,7 @@ def phase_entry_readers(dev, frames):
     import shutil
     import zlib
 
-    from multimot_track_tpu_torch.io import kitti, png
+    from multimot_track_tpu_torch.io import kitti, native_loader, png
     from multimot_track_tpu_torch.io.flowio import read_flo
     from multimot_track_tpu_torch.io.synth import write_kitti_tree
 
@@ -1606,6 +1779,7 @@ def phase_entry_readers(dev, frames):
     ms_py, fd_py = host_ms_each(py.load_frame, range(n))
     log(f"[entry readers] ms per frame: PNG decode (RGB image + 16-bit depth) {ms_png:.2f}, "
         f".flo {ms_flo:.2f}, mask text {ms_mask:.2f}; load_frame {ms_py:.2f}")
+    native = entry_native_reader(dev, root, fd_py)
     for i, (fd, src) in enumerate(zip(fd_py, frames)):
         sem = np.where(src.sem_mask < 4, src.sem_mask, 0)
         depth = np.clip(np.round(src.depth_raw), 0, 65535).astype(np.float32)
@@ -1623,13 +1797,54 @@ def phase_entry_readers(dev, frames):
         data = f.read()
     raw = b"".join(body for kind, body in png._chunks(data, f.name) if kind == b"IDAT")
     ms_inflate, _ = host_ms_each(zlib.decompress, [raw] * 10)
+    size = len(zlib.decompress(raw))
+    ms_own_inflate, inflated = host_ms_each(lambda r: native_loader.inflate(r, size), [raw] * 10)
+    if inflated[0] != zlib.decompress(raw):
+        raise SystemExit("entry readers: the loader's inflate disagrees with zlib")
     img_rows = np.frombuffer(zlib.decompress(raw), np.uint8).reshape(H, -1)
     ms_unfilter, _ = host_ms_each(lambda r: png.unfilter_native(r, 3), [img_rows] * 10)
     log(f"[entry readers] the {n}-frame tree round-trips; native PNG unfilter == plain on "
-        f"375 rows of 1242 RGB pixels; one RGB image: inflate {ms_inflate:.2f} ms, native "
-        f"unfilter {ms_unfilter:.2f} ms")
+        f"375 rows of 1242 RGB pixels; one RGB image: inflate {ms_inflate:.2f} ms (zlib), "
+        f"{ms_own_inflate:.2f} ms (native/loader.cc, equal output), native unfilter "
+        f"{ms_unfilter:.2f} ms")
     return root, dict(png_ms=ms_png, flo_ms=ms_flo, mask_ms=ms_mask, load_frame_ms=ms_py,
-                      inflate_ms=ms_inflate, unfilter_ms=ms_unfilter)
+                      inflate_ms=ms_inflate, loader_inflate_ms=ms_own_inflate,
+                      unfilter_ms=ms_unfilter, native=native)
+
+
+def entry_native_reader(dev, root, fd_py):
+    """Phase 11(a): ``NativeKittiSequence`` (prefetch depth 4) over the tree
+    against ``KittiSequence``'s frames ``fd_py``: depth, flow, mask and
+    ground truth equal, gray within 1e-4; per frame the ms of each reader
+    (the Python one timed alone again) and the native consumer's wait."""
+    from multimot_track_tpu_torch.io import kitti, native_loader
+
+    nat = native_loader.NativeKittiSequence(root, prefetch_depth=4, device=dev)
+    py = kitti.KittiSequence(root, device=dev)
+    rows, worst = [], 0.0
+    try:
+        for i, ref in enumerate(fd_py):
+            t0 = time.perf_counter()
+            fd = nat.load_frame(i)
+            t1 = time.perf_counter()
+            py.load_frame(i)
+            t2 = time.perf_counter()
+            rows.append((1e3 * (t2 - t1), 1e3 * (t1 - t0), 1e3 * nat.last_wait_s))
+            for f in ("depth_raw", "flow", "sem_mask", "pose_gt", "obj_ids_gt", "obj_poses_gt",
+                      "obj_bboxes_gt"):
+                if not np.array_equal(getattr(fd, f), getattr(ref, f)):
+                    raise SystemExit(f"entry native: frame {i}: {f} differs from KittiSequence")
+            worst = max(worst, float(np.abs(fd.gray - ref.gray).max()))
+            log(f"[entry native] frame {i}: KittiSequence {rows[-1][0]:.2f} ms, "
+                f"NativeKittiSequence {rows[-1][1]:.2f} ms (waited {rows[-1][2]:.2f} ms)")
+    finally:
+        nat.close()
+    log(f"[entry native] {len(fd_py)} frames: depth, flow, mask and ground truth equal, gray "
+        f"max |d| {worst:.3e} (bound 1e-4)")
+    if worst > 1e-4:
+        raise SystemExit("entry native: gray differs from KittiSequence by more than 1e-4")
+    py_ms, nat_ms, wait_ms = (list(c) for c in zip(*rows))
+    return dict(kitti_ms=py_ms, native_ms=nat_ms, wait_ms=wait_ms, gray_max_abs=worst)
 
 
 def flow_agreement(a, b):
@@ -1883,6 +2098,23 @@ def phase_entry_tum_server(dev, frames, kitti_root, log_dir):
     return out
 
 
+def entry_cli_python_reader(root, n, log_dir):
+    """The RGB-D CLI run of phase 11(b) once more, reading with the Python
+    ``KittiSequence`` in place of ``get_sequence``: (wall s, track_rgbd s a
+    frame)."""
+    from multimot_track_tpu_torch.io import kitti, native_loader
+
+    native = native_loader.get_sequence
+    native_loader.get_sequence = lambda path, device: kitti.KittiSequence(path, device=device)
+    try:
+        s, seq, summ, wall, k1, k2 = run_cli_logged(
+            [root, "--frames", str(n)], os.path.join(log_dir, "entry_cli_rgbd_kitti.log"))
+    finally:
+        native_loader.get_sequence = native
+    check_cli_run("rgbd kitti reader", s, summ, k1, k2, n, ate_max=0.5, rpe_max=0.05)
+    return wall, summ["mean_frame_time_s"]
+
+
 def phase_entry(dev, frames, live_ms, log_dir):
     """Phase 11: the sequence entry points on the card.  The trees and the
     RGB-D run's results are written under build/scratch/entry/ and removed
@@ -1895,13 +2127,19 @@ def phase_entry(dev, frames, live_ms, log_dir):
         s, seq, summ, wall, k1, k2 = run_cli_logged(
             [root, "--frames", str(n), "--out", os.path.join(ENTRY_DIR, "rgbd_results")],
             os.path.join(log_dir, "entry_cli_rgbd.log"))
-        log(f"[entry rgbd] cli.main on the {n}-frame tree, DEFAULT_CONFIG "
-            f"on the card: {1e3 * wall / n:.2f} ms/frame end to end (reading and prefetch "
-            f"included), track_rgbd {1e3 * summ['mean_frame_time_s']:.2f} ms/frame; phase 6 "
-            f"synchronous in-memory run of the same frames: "
-            f"{'not run' if live_ms is None else f'{live_ms:.2f} ms/frame'}")
+        if type(seq).__name__ != "NativeKittiSequence":
+            raise SystemExit(f"entry rgbd: the CLI read the tree with {type(seq).__name__}")
         check_cli_run("rgbd", s, summ, k1, k2, n, ate_max=0.5, rpe_max=0.05)
+        py_wall, py_track = entry_cli_python_reader(root, n, log_dir)
+        log(f"[entry rgbd] cli.main on the {n}-frame tree, DEFAULT_CONFIG on the card, ms/frame "
+            f"end to end (reading and prefetch included; track_rgbd alone in brackets): "
+            f"through NativeKittiSequence {1e3 * wall / n:.2f} ({1e3 * summ['mean_frame_time_s']:.2f}), "
+            f"then over KittiSequence {1e3 * py_wall / n:.2f} ({1e3 * py_track:.2f}); phase 6's "
+            f"synchronous in-memory run of the same frames: "
+            f"{'not run' if live_ms is None else f'{live_ms:.2f}'}")
         rgbd = dict(ms_per_frame=1e3 * wall / n, track_ms=1e3 * summ["mean_frame_time_s"],
+                    kitti_reader_ms_per_frame=1e3 * py_wall / n,
+                    kitti_reader_track_ms=1e3 * py_track, in_memory_ms_per_frame=live_ms,
                     cam_t_rpe=summ["cam_t_rpe_rel_mean"], ate_m=summ["ego_ate_rmse_m"],
                     k1=k1, k2=k2)
         stereo_out = phase_entry_stereo(dev, log_dir)
@@ -2393,7 +2631,7 @@ class SiteSampler:
 
         p = torch.where(p.sum(-1, keepdim=True) <= 0, torch.ones_like(p), p)
         rows = []
-        for m, site in enumerate(sites):
+        for m, site in enumerate(sites.names()):
             g = torch.Generator(device=p.device).manual_seed(zlib.crc32(repr(site).encode()))
             rows.append(torch.multinomial(p[m], iters * k, replacement=True, generator=g))
         return torch.stack(rows).view(len(sites), iters, k)
@@ -2761,6 +2999,7 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     smi = nvidia_smi()
     dev = torch.device("cuda", 0)
     log(f"[card] {smi} | torch {torch.__version__} CUDA {torch.version.cuda} | "
@@ -2805,36 +3044,50 @@ def main(argv) -> int:
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
         return 0
+    def lap(what):
+        log(f"[time] {what} done {time.perf_counter() - started:.1f} s into the script")
+
     k1 = phase_kernel_vs_plain(dev)
     if "--k1-only" in argv:                 # phases 1-3 alone, no result lines
         return 0
+    lap("phases 1-3")
     t0 = time.perf_counter()
     frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
     log(f"[scene] rendered {len(frames)} junction frames in {time.perf_counter() - t0:.1f} s")
     phase_slice(dev, frames)
+    lap("phase 4")
     k2 = phase_match_kernel(dev)
     live = phase_live(dev, frames)
     phase_window(dev, frames, live["system"])
+    lap("phases 5-7")
     t0 = time.perf_counter()
     shuttle = shuttle_frames()
     log(f"[scene] rendered the {len(shuttle)}-frame shuttle in {time.perf_counter() - t0:.1f} s")
     loop = phase_loop(dev, shuttle)
     loop_solvers = phase_loop_solvers(dev)
     log(json.dumps({"loop": loop, "loop_solvers": loop_solvers}))
+    lap("phases 8-8b")
     bow = phase_bow(dev)
     bow_live = phase_bow_live(dev, shuttle, loop)
     discovery = phase_discovery(dev, frames)
     discovery_live = phase_discovery_live(dev, frames)
     log(json.dumps({"bow": bow, "bow_live": bow_live, "discovery": discovery,
                     "discovery_live": discovery_live}))
+    lap("phases 9-10")
     entry = phase_entry(dev, frames, live["ms_per_frame"], log_dir)
     log(json.dumps({"entry": entry}))
+    lap("phase 11")
     mono = phase_mono(dev, log_dir)
     log(json.dumps({"mono": mono}, default=float))
+    lap("phase 12")
     surface = phase_surface(dev, log_dir)
     log(json.dumps({"surface": surface}, default=float))
+    lap("phase 13")
     parallel = phase_parallel(dev, frames)
     log(json.dumps({"parallel": parallel}))
+    lap("phase 14")
+    log(json.dumps({"streaming_idle": phase_streaming_idle(dev, frames)}))
+    lap("phase 4(c)")
 
     obj, lm = k1[1], k2[0]                  # the live object stage, TrackLocalMap's shape
     log(json.dumps({"kernels": [{

@@ -8,7 +8,10 @@ print per-frame metrics, dump trajectories and results.
 
 Port of ``multimot_track_tpu.cli`` with the same flags.  Everything runs on
 the card unless ``--cpu`` is given; without a card and without ``--cpu``
-it raises.  ``--mono`` (over a KITTI tree, or a TUM one with ``--tum``)
+it raises.  A KITTI tree (RGB-D, or ``--mono`` over one) is read by the
+native threaded loader, ``io/native_loader.get_sequence``, as in the JAX
+package, and without its fallback: a loader that does not build or a frame
+that does not decode raises.  ``--mono`` (over a KITTI tree, or a TUM one with ``--tum``)
 and ``--euroc`` run the monocular tracker (``run_mono``).  ``--out``
 writes the results and the top-down trajectory ``traj.png``; with
 ``--viz`` also each frame's object boxes and speeds as ``speed_%06d.png``
@@ -101,9 +104,9 @@ def open_sequence(args, cfg, device):
 
         seq = StereoKittiSequence(args.sequence, quad_gate=args.quad_stereo, device=device)
     else:
-        from multimot_track_tpu_torch.io.kitti import KittiSequence
+        from multimot_track_tpu_torch.io.native_loader import get_sequence
 
-        seq = KittiSequence(args.sequence, device=device)
+        seq = get_sequence(args.sequence, device=device)
     if args.no_estimate_flow and hasattr(seq, "estimate_flow"):
         seq.estimate_flow = False
     return seq, cfg

@@ -100,8 +100,9 @@ def segmentation_confusion(pred_label, sem_label, gt_dynamic_ids, gt_dynamic_val
 def flow_error_histogram(err: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """20-bin histogram of (..., N) flow errors: 0.5 px bins to 9, then
     [9, 10) and [10, inf).  Returns (..., 20) int64."""
-    edges = torch.cat([torch.arange(0.0, 9.5, 0.5, device=err.device),
-                       torch.tensor([10.0, float("inf")], device=err.device)])
+    edges = torch.cat([torch.arange(0.0, 9.5, 0.5, device=err.device),     # filled on the
+                       torch.full((1,), 10.0, device=err.device),           # device: a host
+                       torch.full((1,), float("inf"), device=err.device)])  # list would copy
     idx = torch.clamp(torch.searchsorted(edges, err.contiguous(), right=True) - 1, 0, 19)
     out = torch.zeros(err.shape[:-1] + (20,), dtype=torch.int64, device=err.device)
     return out.scatter_add_(-1, idx, valid.to(torch.int64))

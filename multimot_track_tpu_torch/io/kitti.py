@@ -178,6 +178,10 @@ class KittiSequence:
             if p["semantic"].exists()
             else np.zeros((H, W), np.int32)
         )
+        return self.frame_record(i, gray, depth_raw, flow, sem)
+
+    def frame_record(self, i: int, gray, depth_raw, flow, sem) -> FrameData:
+        """Frame i's decoded images with its timestamp and ground truth."""
         rows = self.obj_rows.get(i, [])
         obj_ids = np.asarray([int(r[1]) for r in rows], np.int32)
         obj_poses = (

@@ -4,12 +4,13 @@ Each kernel source under ``csrc/`` has a plain C interface and is compiled
 by ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``.
 The build happens at first use, from the sources in the checkout, into
 ``build/torch_kernels/<name>-<hash>/`` at the repository root; the hash
-covers the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once.  Nothing here runs at import time.
+covers the source, the headers it includes with quotes, and the flags, so
+an edited source or header rebuilds and an unchanged one loads at once.
+Nothing here runs at import time.
 
 The host C++ sources under ``native/`` (the exact graph-cut labeler, the
-PNG unfilter) build the same way with the host compiler (``$CXX``, then
-``g++``).
+PNG unfilter, the threaded KITTI loader) build the same way with the host
+compiler (``$CXX``, then ``g++``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +30,10 @@ NATIVE = PACKAGE_DIR / "native"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")   # the JAX package's Makefile
+# the JAX package's Makefile (its -lpthread as -pthread), and no fused
+# multiply-adds: the loader rounds each float32 product of its gray conversion
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread", "-ffp-contract=off")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 class KernelBuildError(RuntimeError):
@@ -46,11 +51,26 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (set CUDA_HOME)")
 
 
+def _source_bytes(src: pathlib.Path, seen=None) -> bytes:
+    """The bytes of ``src`` and of every header it includes with quotes,
+    recursively (each once), relative to the including file."""
+    seen = set() if seen is None else seen
+    seen.add(src)
+    data = src.read_bytes()
+    out = [data]
+    for inc in _LOCAL_INCLUDE.findall(data):
+        path = (src.parent / inc.decode()).resolve()
+        if path not in seen:
+            out.append(_source_bytes(path, seen))
+    return b"".join(out)
+
+
 def _build_lib(name: str, src: pathlib.Path, compiler: str, flags) -> pathlib.Path:
     """Compile ``src`` into build/torch_kernels/<name>-<hash>/lib<name>.so
-    unless that file exists; the hash covers the source and the flags.
-    Raises KernelBuildError with the compiler's output on failure."""
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    unless that file exists; the hash covers the source, the headers it
+    includes with quotes, and the flags.  Raises KernelBuildError with the
+    compiler's output on failure."""
+    digest = hashlib.sha256(_source_bytes(src) + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():

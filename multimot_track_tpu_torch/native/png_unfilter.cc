@@ -1,58 +1,15 @@
-// PNG scanline unfiltering (PNG specification, section 9: filter method 0).
-//
-// io/png.py inflates a PNG's IDAT stream with zlib and hands the filtered
-// scanlines here when any of them uses Average (3) or Paeth (4): both
-// predict a byte from the already reconstructed byte to its left, so
-// numpy cannot reverse them without a loop over the row's bytes.  This
-// routine reverses all five filter types, row after row.
-//
-// raw:  n_rows x (1 + row_bytes) bytes, each row led by its filter type
-// out:  n_rows x row_bytes reconstructed bytes
-// bpp:  bytes per complete pixel (at least 1), the distance to "a"
+// PNG scanline unfiltering for io/png.py: its IDAT stream is inflated with
+// zlib and the filtered scanlines are handed here.  The routine itself is
+// native/png_unfilter.h, which native/loader.cc shares.
 
-#include <cstdint>
-#include <cstdlib>
-
-namespace {
-
-inline uint8_t paeth(int a, int b, int c) {
-  const int p = a + b - c;
-  const int pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
-  if (pa <= pb && pa <= pc) return uint8_t(a);
-  if (pb <= pc) return uint8_t(b);
-  return uint8_t(c);
-}
-
-}  // namespace
+#include "png_unfilter.h"
 
 extern "C" {
 
 // Returns 0, or -(y + 1) when row y names an unknown filter type.
 int mmt_png_unfilter(const uint8_t* raw, uint8_t* out, int n_rows, int row_bytes,
                      int bpp) {
-  for (int y = 0; y < n_rows; ++y) {
-    const uint8_t* in = raw + size_t(y) * (row_bytes + 1);
-    const uint8_t ft = in[0];
-    ++in;
-    uint8_t* cur = out + size_t(y) * row_bytes;
-    const uint8_t* up = y > 0 ? cur - row_bytes : nullptr;
-    for (int x = 0; x < row_bytes; ++x) {
-      const int a = x >= bpp ? cur[x - bpp] : 0;
-      const int b = up ? up[x] : 0;
-      const int c = (up && x >= bpp) ? up[x - bpp] : 0;
-      int pred;
-      switch (ft) {
-        case 0: pred = 0; break;
-        case 1: pred = a; break;
-        case 2: pred = b; break;
-        case 3: pred = (a + b) >> 1; break;
-        case 4: pred = paeth(a, b, c); break;
-        default: return -(y + 1);
-      }
-      cur[x] = uint8_t(in[x] + pred);
-    }
-  }
-  return 0;
+  return mmt_png::unfilter(raw, out, n_rows, row_bytes, bpp);
 }
 
 }  // extern "C"

@@ -26,7 +26,7 @@ def _weight_mat(in_size: int, out_size: int, device,
     device, whose float32 column sums differ in order)."""
     f32 = torch.float32
     scale = out_size / in_size
-    inv_scale = torch.tensor(1.0 / scale, dtype=f32, device=device)
+    inv_scale = torch.full((), 1.0 / scale, dtype=f32, device=device)   # no host copy
     kernel_scale = torch.clamp(inv_scale, min=1.0).to(dtype)
     # XLA on the CPU contracts ``(i + 0.5) * inv_scale - 0.5`` into one fused
     # multiply-add; the float64 product of two float32 values is exact, so

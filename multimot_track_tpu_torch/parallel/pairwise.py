@@ -56,7 +56,7 @@ def solve_relative_batch(
     xyz_cur = camera.backproject(st_cur_uv, st_cur_depth, fx, fy, cx, cy)
     rr = ransac.ransac_rigid_pose(
         Xl, st_cur_uv, xyz_cur, st_valid & (st_cur_depth > 0), fx, fy, cx, cy,
-        sampler=sampler, sites=[(int(p), "pairwise") for p in pair_ids],
+        sampler=sampler, sites=ransac.Sites([(int(p), "pairwise") for p in pair_ids]),
         thresh=sol.ransac_reproj_px, iters=sol.ransac_iters,
         refine_iters=sol.refine_gn_iters,
     )

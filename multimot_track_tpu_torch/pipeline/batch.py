@@ -176,6 +176,72 @@ def run_sequence_batched(
     return _compose_batch_outputs(res, Fn)
 
 
+class ChunkUploader:
+    """Host arrays onto ``device`` for the streaming driver.
+
+    On a CUDA device each call stages its arrays in pinned host memory and
+    copies them with ``non_blocking=True`` on a stream of its own; the
+    current (compute) stream waits on that copy's event and nothing else,
+    so the host never waits for the card and a chunk's upload overlaps the
+    solves queued before it.  The pinned buffers and their events live as
+    long as the uploader, which the driver drops only after its drain, so
+    no buffer is reused before its copy has finished.  On any other device
+    the arrays are wrapped as they are (``torch.from_numpy``)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.staged = []
+
+    def __call__(self, arrays: dict) -> dict:
+        if not self.cuda:
+            return {k: torch.from_numpy(a).to(self.device) for k, a in arrays.items()}
+        pinned = {k: torch.from_numpy(a).pin_memory() for k, a in arrays.items()}
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            out = {k: t.to(self.device, non_blocking=True) for k, t in pinned.items()}
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        compute.wait_event(done)
+        for t in out.values():
+            t.record_stream(compute)       # allocated on the copy stream, used on compute
+        self.staged.append((pinned, done))
+        return out
+
+
+def stream_chunks(frame_list: List, cfg: PipelineConfig, chunk: int, prepacked: List = None):
+    """The streaming driver's host side: frame 0's arrays, then each chunk's
+    (pair ids, arrays) in order.  The arrays are the stacked wire images
+    (``gray``, ``depth``, ``flow``, ``sem``) and the GT table's fields
+    (``gt.<field>``); a short last chunk is padded with the last frame, and
+    its pair ids with the last pair."""
+    K = cfg.padding.k_obj_max
+    Fn = len(frame_list)
+    n_pairs = Fn - 1
+    if n_pairs < 1:
+        raise ValueError("need at least 2 frames")
+    wires = prepacked or [pack_frame_wire(fd, cfg) for fd in frame_list]
+    gts = [F.make_gt_table(fd.pose_gt, fd.obj_ids_gt, fd.obj_poses_gt, K) for fd in frame_list]
+
+    def arrays(idx):
+        out = {k: np.stack([wires[i][k] for i in idx]) for k in ("gray", "depth", "flow", "sem")}
+        out.update({f"gt.{f}": np.stack([getattr(gts[i], f) for i in idx])
+                    for f in F.GTTable._fields})
+        return out
+
+    chunks = [([min(c0 + i, n_pairs - 1) for i in range(chunk)],
+               arrays([min(c0 + 1 + i, Fn - 1) for i in range(chunk)]))
+              for c0 in range(0, n_pairs, chunk)]
+    return arrays([0]), chunks
+
+
+def chunk_inputs(t: dict):
+    """Uploaded chunk arrays -> (gray, depth, flow, sem, GTTable)."""
+    gt = F.GTTable(*(t[f"gt.{f}"] for f in F.GTTable._fields))
+    return t["gray"], t["depth"], t["flow"], t["sem"], gt
+
+
 def run_sequence_streaming(
     frame_list: List,
     cfg: PipelineConfig = DEFAULT_CONFIG,
@@ -188,36 +254,28 @@ def run_sequence_streaming(
 ):
     """Serving mode: chunks of ``chunk`` new frames in v2 wire form, each
     chunk's frontend and pair solves run together (``stream_chunk``) with
-    the previous chunk's last observation carried on the device.  Chunks
-    run one after another.
+    the previous chunk's last observation carried on the device.
+
+    As the JAX package's driver does, every chunk's upload and dispatch is
+    enqueued and the results stay on the device until one drain after the
+    last dispatch: between the first dispatch and the drain nothing waits
+    for the card.  On a CUDA device the uploads go through pinned memory
+    on a second stream (``ChunkUploader``), so chunk k+1's upload overlaps
+    chunk k's solve; on the CPU the same steps run in order.
     Returns the same outputs as ``run_sequence_batched``."""
     device, sampler = _setup(device, seed, sampler)
-    K = cfg.padding.k_obj_max
-    Fn = len(frame_list)
-    n_pairs = Fn - 1
-    if n_pairs < 1:
-        raise ValueError("need at least 2 frames")
-    wires = prepacked or [pack_frame_wire(fd, cfg) for fd in frame_list]
-    gts = [F.make_gt_table(fd.pose_gt, fd.obj_ids_gt, fd.obj_poses_gt, K) for fd in frame_list]
-
-    def upload(idx):
-        return {k: torch.from_numpy(np.stack([wires[i][k] for i in idx])).to(device)
-                for k in ("gray", "depth", "flow", "sem")}
-
-    w0 = upload([0])
-    carry = frontend_one(w0["gray"][0], w0["depth"][0], w0["flow"][0], w0["sem"][0], gts[0],
-                         cfg)
-    chunks = []
-    for c0 in range(0, n_pairs, chunk):
-        idx = [min(c0 + 1 + i, Fn - 1) for i in range(chunk)]     # pad with the last
-        w = upload(idx)
-        gt_c = F.stack_gt([gts[i] for i in idx], device)
-        pair_ids = [min(c0 + i, n_pairs - 1) for i in range(chunk)]
-        res, carry = stream_chunk(carry, w["gray"], w["depth"], w["flow"], w["sem"], gt_c,
-                                  cfg, sampler, pair_ids, backend)
-        chunks.append(state.result_to_numpy(res))
-    res = F.tree_map(lambda *xs: np.concatenate(xs)[:n_pairs], *chunks)
-    return _compose_batch_outputs(res, Fn)
+    n_pairs = len(frame_list) - 1
+    first, chunks = stream_chunks(frame_list, cfg, chunk, prepacked)
+    upload = ChunkUploader(device)
+    carry = frontend_batch(*chunk_inputs(upload(first)), cfg)
+    results = []
+    for pair_ids, arrays in chunks:
+        res, carry = stream_chunk(carry, *chunk_inputs(upload(arrays)), cfg, sampler,
+                                  pair_ids, backend)
+        results.append(res)
+    res = state.result_to_numpy(_cat(results))       # the one drain
+    res = F.tree_map(lambda x: x[:n_pairs], res)
+    return _compose_batch_outputs(res, len(frame_list))
 
 
 def _compose_batch_outputs(res, Fn: int):

@@ -23,6 +23,7 @@ import torch
 
 from multimot_track_tpu_torch.geometry import camera, se3
 from multimot_track_tpu_torch.ops import graphcut
+from multimot_track_tpu_torch.solvers.ransac import Sites
 
 
 class DiscoveredObjects(NamedTuple):
@@ -74,7 +75,7 @@ def _discovery_problem(sampler, site, depth0, depth1, flow, T_rel, fx, fy, cx, c
     graph = graphcut.build_knn_graph(c_uv1, mask, k=6)
     # hypothesis seeds: with replacement, uniform over the candidates
     p = mask.to(torch.float32) / torch.clamp(mask.sum(), min=1).to(torch.float32)
-    seeds = sampler(p[None], n_hyp, [site], k=1)[0, :, 0].to(dev)
+    seeds = sampler(p[None], n_hyp, Sites([site]), k=1)[0, :, 0].to(dev)
     hyp = graphcut.sample_motion_hypotheses(seeds, graph, c_X0, c_X1)
     # label 0 is the ego (static) motion; duplicate hypotheses are masked
     hyps = torch.cat([T_rel[None].to(hyp.dtype), hyp], 0)

@@ -144,7 +144,7 @@ def track_pairs(
     st_pnp_valid = st_solve & (pair.st_cur_depth > 0)
     rr = ransac.ransac_rigid_pose(
         Xw_st, pair.st_cur_uv, xyz_cur_st, st_pnp_valid, fx, fy, cx, cy,
-        sampler=sampler, sites=[(int(p), "ego") for p in pair_ids],
+        sampler=sampler, sites=ransac.Sites([(int(p), "ego") for p in pair_ids]),
         thresh=sol.ransac_reproj_px, iters=sol.ransac_iters,
         refine_iters=sol.refine_gn_iters,
     )
@@ -297,11 +297,11 @@ def track_pairs(
     MM_s, has_prev_s = per_stream(MM), per_stream(has_prev)
     Twl_s = Twl[:, None, None].expand(B, K_s, S, 4, 4).reshape(BKS, 4, 4)
 
-    top_host = top_idx.tolist()
-    sites = [
-        (int(pair_ids[b]), "obj", top_host[b][k], s if sol.obj_ensemble else None)
-        for b in range(B) for k in range(K_s) for s in range(S)
-    ]
+    # the slots' names need top_idx on the host: built only if the sampler asks
+    sites = ransac.Sites(n=BKS, build=lambda: [
+        (int(pair_ids[b]), "obj", slot, s if sol.obj_ensemble else None)
+        for b, row in enumerate(top_idx.tolist()) for slot in row for s in range(S)
+    ])
     r_sub = _strided(M, sol.obj_ransac_score_pts)
     rrk = ransac.ransac_rigid_pose(
         Xp_o[:, r_sub], cur_uv_o[:, r_sub], xyz_o[:, r_sub], memb[:, r_sub],
@@ -366,7 +366,7 @@ def track_pairs(
     H_world[bidx[:, None], top_idx] = H_s
     n_inl[bidx[:, None], top_idx] = best_n
     centre_pre[bidx[:, None], top_idx] = cpre_s
-    solved[bidx[:, None], top_idx] = True
+    solved[bidx[:, None], top_idx] = torch.ones_like(top_idx, dtype=torch.bool)  # no host scalar
     active = active & solved
 
     # current-frame world centroid + bbox over all members

@@ -36,7 +36,10 @@ def _dominant_quat(N: torch.Tensor, squarings: int = 12, power_iters: int = 4) -
     M = renorm(M)
     for _ in range(squarings):
         M = renorm(M @ M)
-    q = torch.tensor([1.0, 0.1, 0.2, 0.3], dtype=N.dtype, device=N.device).expand(N.shape[:-1])
+    # the start vector (1, 0.1, 0.2, 0.3), filled on N's device: a host
+    # constant would be a synchronous copy to the card
+    q = torch.stack([torch.full(N.shape[:-2], v, dtype=N.dtype, device=N.device)
+                     for v in (1.0, 0.1, 0.2, 0.3)], -1)
     for _ in range(power_iters):
         q = (M @ q[..., None])[..., 0]
         q = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-30)

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from multimot_track_tpu_torch.geometry import se3
-from multimot_track_tpu_torch.solvers.ransac import HypothesisSampler
+from multimot_track_tpu_torch.solvers.ransac import HypothesisSampler, Sites
 
 
 def _normalize(pts: torch.Tensor):
@@ -216,8 +216,8 @@ def initialize_mono(
     Kmat = torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=dt, device=dev)
     vf = valid.to(dt)
     pr = vf / torch.clamp(vf.sum(), min=1.0)
-    idxF = sampler(pr[None], iters, [(frame, "mono_F")], k=8)[0]
-    idxH = sampler(pr[None], iters, [(frame, "mono_H")], k=4)[0]
+    idxF = sampler(pr[None], iters, Sites([(frame, "mono_F")]), k=8)[0]
+    idxH = sampler(pr[None], iters, Sites([(frame, "mono_H")]), k=4)[0]
     Fs = eight_point_F(uv1[idxF], uv2[idxF])
     Hs = four_point_H(uv1[idxH], uv2[idxH])
     s2 = sigma * sigma

@@ -20,7 +20,7 @@ import torch
 
 from multimot_track_tpu_torch.geometry import se3
 from multimot_track_tpu_torch.solvers.ransac import (
-    HypothesisSampler, _count_inliers, _gn_refine,
+    HypothesisSampler, Sites, _count_inliers, _gn_refine,
 )
 
 
@@ -72,7 +72,7 @@ def ransac_pnp(
     slabs forward motion triangulates)."""
     vf = valid.to(torch.float32)
     p = vf / torch.clamp(vf.sum(), min=1.0)
-    idx = sampler(p[None], iters, [site], k=min_set)[0]               # (iters, min_set)
+    idx = sampler(p[None], iters, Sites([site]), k=min_set)[0]               # (iters, min_set)
     T_hyp = dlt_pose(Xw[idx], uv[idx], fx, fy, cx, cy)
     _, counts = _count_inliers(T_hyp, Xw[None], uv[None], valid[None], thresh,
                                fx, fy, cx, cy)

@@ -14,7 +14,7 @@ score the same hypotheses.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Protocol, Sequence
+from typing import Callable, List, NamedTuple, Optional, Protocol, Sequence
 
 import torch
 
@@ -26,19 +26,46 @@ from multimot_track_tpu_torch.solvers import horn
 _SCORE_CHUNK_ELEMS = 1 << 25
 
 
-class HypothesisSampler(Protocol):
-    def __call__(self, p: torch.Tensor, iters: int, sites: Sequence[tuple],
-                 k: int = 3) -> torch.Tensor:
-        """p (M, N) row probabilities -> (M, iters, k) int64 point indices.
+class Sites:
+    """The names of a sampler call's rows: ``(pair, "ego")`` for a pair's
+    ego RANSAC, ``(pair, "obj", slot, seed)`` for an object stream,
+    ``(frame, "pnp")`` for a relocalization PnP, and so on.
 
-        ``sites[m]`` names the draw of row m: ``(pair, "ego")`` for a pair's
-        ego RANSAC, ``(pair, "obj", slot, seed)`` for an object stream,
-        ``(frame, "pnp")`` for a relocalization PnP (k = 10)."""
+    ``len(sites)`` is free.  ``sites.names()`` returns the list of name
+    tuples; names that depend on device data (the object slots a pair
+    solves) are built by ``build`` on the first call, which reads that data
+    back to the host.  So a sampler that never asks for the names never
+    makes the pair step wait for the card."""
+
+    def __init__(self, names: Sequence[tuple] = (), *, n: Optional[int] = None,
+                 build: Optional[Callable[[], List[tuple]]] = None):
+        self._names = None if build else list(names)
+        self._build = build
+        self._n = len(self._names) if build is None else n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def names(self) -> List[tuple]:
+        if self._names is None:
+            self._names = self._build()
+            self._build = None
+            if len(self._names) != self._n:
+                raise ValueError(f"built {len(self._names)} site names for {self._n} rows")
+        return self._names
+
+
+class HypothesisSampler(Protocol):
+    def __call__(self, p: torch.Tensor, iters: int, sites: Sites, k: int = 3) -> torch.Tensor:
+        """p (M, N) row probabilities -> (M, iters, k) int64 point indices.
+        ``sites`` names the M rows (``len(sites) == M``); a sampler that
+        replays draws by name reads them with ``sites.names()``."""
 
 
 class MultinomialSampler:
     """Draws hypothesis index sets with replacement, proportional to p, from
-    one ``torch.Generator``.  Rows with no valid point draw uniformly."""
+    one ``torch.Generator``.  Rows with no valid point draw uniformly.  It
+    reads no site name, so on the card it never waits for the device."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -131,7 +158,7 @@ def ransac_rigid_pose(
     valid: torch.Tensor,        # (M, N) bool
     fx: float, fy: float, cx: float, cy: float,
     sampler: HypothesisSampler,
-    sites: Sequence[tuple],
+    sites: Sites,
     thresh: float = 0.3,
     iters: int = 500,
     refine_iters: int = 10,

@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from multimot_track_tpu_torch.geometry import camera
-from multimot_track_tpu_torch.solvers.ransac import HypothesisSampler
+from multimot_track_tpu_torch.solvers.ransac import HypothesisSampler, Sites
 
 
 def umeyama(src: torch.Tensor, dst: torch.Tensor, with_scale: bool = True):
@@ -58,7 +58,7 @@ def ransac_sim3(
     with replacement in proportion to ``valid``; ties go to the first."""
     vf = valid.to(torch.float32)
     p = vf / torch.clamp(vf.sum(), min=1.0)
-    idx = sampler(p[None], iters, [site])[0]                  # (iters, 3)
+    idx = sampler(p[None], iters, Sites([site]))[0]                  # (iters, 3)
     s, R, t = umeyama(X1[idx], X2[idx], with_scale=not fix_scale)
 
     uv1 = camera.project(X1, fx, fy, cx, cy)

@@ -31,6 +31,7 @@ from multimot_track_tpu.ops import graphcut as jgc
 from multimot_track_tpu.pipeline import motion_seg as jms
 from multimot_track_tpu_torch.ops import graphcut as tgc
 from multimot_track_tpu_torch.pipeline import motion_seg as tms
+from multimot_track_tpu_torch.solvers.ransac import Sites
 from test_graphcut import two_motion_scene
 from test_motion_seg import synth_pair
 from test_torch_ransac import JaxKeySampler
@@ -234,7 +235,7 @@ def test_discovery_draw_shape():
     p /= p.sum()
     key = jax.random.PRNGKey(7)
     a = np.asarray(jax.random.choice(key, 300, (24,), p=jnp.asarray(p)))
-    b = key_sampler(key)(_t(p)[None], 24, [(0, "discover")], k=1)
+    b = key_sampler(key)(_t(p)[None], 24, Sites([(0, "discover")]), k=1)
     np.testing.assert_array_equal(b[0, :, 0].numpy(), a)
 
 

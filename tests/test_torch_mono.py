@@ -72,7 +72,7 @@ class MonoKeySampler:
         pn = p.cpu().numpy()
         idx = [np.asarray(jax.random.choice(self.key(s), pn.shape[1], shape=(iters, k),
                                             replace=True, p=jnp.asarray(pn[m])))
-               for m, s in enumerate(sites)]
+               for m, s in enumerate(sites.names())]
         return torch.from_numpy(np.stack(idx)).to(torch.int64).to(p.device)
 
 

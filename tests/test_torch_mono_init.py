@@ -61,7 +61,7 @@ class InitKeySampler:
         keys = {"mono_F": self.kF, "mono_H": self.kH}
         idx = [np.asarray(jax.random.choice(keys[s[1]], pn.shape[1], shape=(iters, k),
                                             replace=True, p=jnp.asarray(pn[m])))
-               for m, s in enumerate(sites)]
+               for m, s in enumerate(sites.names())]
         return torch.from_numpy(np.stack(idx)).to(torch.int64)
 
 

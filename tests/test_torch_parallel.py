@@ -90,7 +90,7 @@ class Recorder:
 
     def __call__(self, p, iters, sites, k=3):
         idx = self.inner(p, iters, sites, k)
-        for s, row in zip(sites, idx):
+        for s, row in zip(sites.names(), idx):
             self.draws.setdefault(s, []).append(row.clone())
         return idx
 

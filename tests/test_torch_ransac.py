@@ -62,7 +62,7 @@ class JaxKeySampler:
         pn = p.cpu().numpy()
         idx = [np.asarray(jax.random.choice(self.key(s), pn.shape[1], shape=(iters, k),
                                             replace=True, p=jnp.asarray(pn[m])))
-               for m, s in enumerate(sites)]
+               for m, s in enumerate(sites.names())]
         return torch.from_numpy(np.stack(idx)).to(torch.int64).to(p.device)
 
 
@@ -134,7 +134,7 @@ def test_ransac_with_jax_keyed_sampler_matches(seed):
     # the ego site of pair 0 uses split(key)[0]; replay the raw key instead
     sampler.key = lambda site: key
     out = transac.ransac_rigid_pose(*(_t(a)[None] for a in (Xw, uv, xyz, valid)),
-                                    FX, FY, CX, CY, sampler=sampler, sites=[(0, "ego")],
+                                    FX, FY, CX, CY, sampler=sampler, sites=transac.Sites([(0, "ego")]),
                                     thresh=0.3, iters=200, refine_iters=10)
     np.testing.assert_allclose(out.T[0].numpy(), np.asarray(ref.T), atol=1e-4)
     assert abs(int(out.n_inliers[0]) - int(ref.n_inliers)) <= 2

@@ -21,7 +21,6 @@ PORT_PKG = REPO / "multimot_track_tpu_torch"
 
 # whole modules not ported, by path (a trailing "/" covers a directory)
 WAITING_MODULES = {
-    "io/native_loader.py": "ROADMAP item 22: the card's machine has no libpng headers",
     "ops/pallas_match.py": "TPU kernel K2, replaced by csrc/match_projected.cu "
                            "(ops/match_cuda.py)",
     "solvers/flow_ba_pallas.py": "TPU kernel K1, replaced by csrc/flow_ba_lm.cu "

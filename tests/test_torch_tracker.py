@@ -164,6 +164,73 @@ def test_run_sequence_streaming_matches_jax(frames):
     _check_sequence(out_t, out_j)
 
 
+# every way a tensor reaches the host; on the card each one waits for the device
+HOST_READS = ("tolist", "item", "cpu", "numpy", "__array__", "__bool__", "__int__",
+              "__float__", "__index__")
+# the plain twin of kernel K1: its early-exit tests read the host, on the CPU only
+# (the card runs the kernel)
+PLAIN_K1 = os.path.join("multimot_track_tpu_torch", "solvers", "flow_ba.py")
+
+
+# tensors made from host data: on the card, a copy the host waits for
+HOST_COPIES = ("tensor", "as_tensor")
+
+
+class HostReadGuard:
+    """While on, every host read of a tensor and every tensor made from
+    host data raises, except inside the plain flow-BA."""
+
+    def __init__(self, monkeypatch):
+        self.on, self.seen = False, []
+        for owner, names in ((torch.Tensor, HOST_READS), (torch, HOST_COPIES)):
+            for name in names:
+                monkeypatch.setattr(owner, name, self._wrap(name, getattr(owner, name)))
+
+    def _wrap(self, name, orig):
+        def read(*a, **kw):
+            caller = sys._getframe(1).f_code.co_filename
+            if self.on and not caller.endswith(PLAIN_K1):
+                self.seen.append(f"{name} from {caller}")
+                raise RuntimeError(f"host read inside the streaming loop: {name} "
+                                   f"from {caller}")
+            return orig(*a, **kw)
+        return read
+
+
+def guarded_streaming(frames, monkeypatch, sampler):
+    """``run_sequence_streaming`` on the CPU with every host read raising
+    from the uploader's creation (before the first dispatch) to the drain."""
+    guard = HostReadGuard(monkeypatch)
+    drain = state.result_to_numpy
+
+    class Uploader(tbatch.ChunkUploader):
+        def __init__(self, device):
+            super().__init__(device)
+            guard.on = True
+
+    def result_to_numpy(res):
+        guard.on = False
+        return drain(res)
+
+    monkeypatch.setattr(tbatch, "ChunkUploader", Uploader)
+    monkeypatch.setattr(state, "result_to_numpy", result_to_numpy)
+    out = tbatch.run_sequence_streaming(frames, TCFG, seed=0, chunk=2, device="cpu",
+                                        sampler=sampler)
+    return out, guard
+
+
+def test_streaming_makes_no_host_read_before_its_drain(frames, monkeypatch):
+    """With the default sampler, nothing between the first dispatch and the
+    single drain reads a tensor back; a sampler that asks for the object
+    sites' names does (the guard's own check)."""
+    (Tcw, res, _), guard = guarded_streaming(
+        frames, monkeypatch, tbatch.MultinomialSampler(torch.Generator().manual_seed(0)))
+    assert guard.seen == [] and np.all(np.isfinite(Tcw)) and Tcw.shape == (len(frames), 4, 4)
+    with pytest.raises(RuntimeError, match="host read inside the streaming loop"):
+        guarded_streaming(frames, monkeypatch,
+                          JaxKeySampler.for_sequence(0, len(frames) - 1, K, S))
+
+
 def test_port_slice_runs_without_jax():
     """Importing the port and running its CPU slice loads no jax."""
     code = (

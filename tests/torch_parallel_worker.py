@@ -36,7 +36,7 @@ class ReplaySampler:
         self.draws = {s: list(v) for s, v in draws.items()}
 
     def __call__(self, p, iters, sites, k=3):
-        idx = torch.stack([self.draws[s].pop(0) for s in sites]).to(p.device)
+        idx = torch.stack([self.draws[s].pop(0) for s in sites.names()]).to(p.device)
         if tuple(idx.shape) != (len(sites), iters, k):
             raise ValueError(f"recorded draws {tuple(idx.shape)} for {(len(sites), iters, k)}")
         return idx

@@ -133,19 +133,26 @@ def _report(prof, wall, trace_path, what, ranges=()):
     """Device-busy share of ``wall`` and the top ops by device time.  The
     device-side spans of the ``record_function`` ranges named in ``ranges``
     are not device work and stay out of the busy time."""
-    import torch
-
     prof.export_chrome_trace(trace_path)
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in ranges]
-    busy = _union_ms([(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
-                      for e in events])
+    busy, n_events = device_busy_ms(prof, ranges)
     print(f"{what}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-          f"idle share {1 - busy / wall:.3f}, {len(events)} device events", flush=True)
+          f"idle share {1 - busy / wall:.3f}, {n_events} device events", flush=True)
     ka = prof.key_averages()
     attr = "device_time_total" if hasattr(ka[0], "device_time_total") else "cuda_time_total"
     print(ka.table(sort_by=attr, row_limit=25, max_name_column_width=60), flush=True)
     return busy
+
+
+def device_busy_ms(prof, ranges=()):
+    """(ms the device was busy, device events) of a finished profile: the
+    union of the device events' spans, without the device-side spans of the
+    ``record_function`` ranges named in ``ranges`` (they are not work)."""
+    import torch
+
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA and e.name() not in ranges]
+    return _union_ms([(e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+                      for e in events]), len(events)
 
 
 def _union_ms(intervals):

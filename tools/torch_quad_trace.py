@@ -124,7 +124,7 @@ class RecordingSampler:
 
     def __call__(self, p, iters, sites, k=3):
         idx = self.inner(p, iters, sites, k)
-        for m, site in enumerate(sites):
+        for m, site in enumerate(sites.names()):
             key = repr(tuple(site))
             self.seen[key] = self.seen.get(key, -1) + 1
             self.rows[f"{key}#{self.seen[key]}"] = idx[m].numpy().astype(np.int16)
