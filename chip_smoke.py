@@ -44,8 +44,12 @@ Phases, in order; any failure exits non-zero before the result lines:
      must be exactly equal, and the profiler must see exactly one device
      kernel for each call the wrapper counted; ms per call of both, the
      profiler's device time by kernel, the empty kernel on the same grid
-     (the floor of one launch) and the bound from the gated pairs;
-     ``--k2-only`` runs phases 1, 2 and 5 alone;
+     (the floor of one launch) and the bound from the gated pairs; then K2
+     on inputs it cannot read in place (column slices ``uv[..., :2]`` of
+     wider arrays, a transposed view, descriptor and position views at an
+     offset that breaks their alignment), each exactly equal to the
+     contiguous call's and none refused; ``--k2-only`` runs phases 1, 2
+     and 5 alone;
   6. the live system: ``MultiMotSystem`` at DEFAULT_CONFIG with its default
      arguments (trailing-window BA every frame, joint ego+object window BA
      at keyframe cadence, keyframes every 5 frames, fused TrackLocalMap,
@@ -221,7 +225,29 @@ Phases, in order; any failure exits non-zero before the result lines:
      within 5e-4 of the one-rank result; gloo's
      route for CUDA tensors goes through host memory, and the collectives
      so staged are printed.  ``--parallel-only`` runs phases 1, 2 and 14.
-Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13, 14 and 4(c), one JSON
+  15. the keyframe store at its default capacity (``kf_capacity`` 96).
+     (a) 130 seeded synthetic keyframes (tests/test_torch_keyframes.py's
+     kind, at the KITTI camera, descriptors from a shared pool) into a store
+     on the card and the same store on the CPU: the held indices equal
+     after every add (34 skeleton evictions, the first keyframe kept), and
+     past ``bow_threshold`` the same loop candidate for a revisit of the
+     first keyframes' descriptors, with equal exact counts on the keyframes
+     both shortlist (the pool makes BoW ties, so the shortlist's last
+     places may differ by rounding); about a second.  (b)
+     Only under ``--capacity-only`` (phases 1, 2 and 15, no result lines;
+     ~10 minutes): ``make_circuit_frames(500)`` at the KITTI camera
+     (rendered ten frames a task by two processes ahead of the tracker,
+     each frame as a whole render gives it) through ``MultiMotSystem`` at
+     DEFAULT_CONFIG, synchronous, K1 and K2 through CUDA: the record
+     ``CIRCUIT500.json`` holds for the JAX package.  Fails unless the store
+     ends at ``kf_capacity``, a keyframe was evicted before the first loop
+     event, the first keyframe is still held, a loop closed, camera t-RPE
+     <= 1.0 %, ATE <= 0.40 m, every pose is finite and K2 == local-map
+     refinements + fuse scans.  Writes ``CIRCUIT500_torch.json`` (or
+     ``--out PATH``): loops with the keyframes added and held at each, ms
+     per frame of tracking, stage totals, peak memory, K1 / K2 launches,
+     the card's name and power limit.
+Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13, 14, 15(a) and 4(c), one JSON
 line of kernel figures (K1's launches from the synchronous live run, K2's
 from it and, as ``mono_launches``, from phase 12's 8 frames with the
 backend on; as ``circuit_launches``, each kernel's from phase 13(a); as
@@ -863,7 +889,52 @@ def phase_match_kernel(dev, strict=True):
                     f"{fig['empty_ms']:.4f} ms device (profiler)" if n_empty == 1 else
                     f"not measured (the profiler returned {n_empty} records per call)"))
         figures.append(fig)
+    match_layouts(dev)
     return figures
+
+
+def match_layouts(dev):
+    """K2 on inputs it cannot read in place, as the JAX function takes them:
+    a column slice ``uv[..., :2]`` of wider arrays, a transposed view, and
+    descriptor and position views at an offset that breaks their alignment.
+    Each result must equal the contiguous call's exactly, and none raises."""
+    import torch
+
+    from multimot_track_tpu_torch.ops import matching
+    from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
+
+    names = ("desc_a", "uv_pred", "valid_a", "desc_b", "uv_b", "valid_b")
+    kw = dict(zip(names, (a.to(dev) for a in make_match_problem(
+        np.random.default_rng(3), 1, 1024, 1024, 12.0))))
+    want = match_projected_cuda(**kw, radius=12.0)
+    views = {
+        "uv_pred = uv[..., :2] of a (1, 1024, 4) array":
+            ("uv_pred", torch.cat([kw["uv_pred"], kw["uv_pred"]], -1)[..., :2]),
+        "uv_b = uv[:, :2] of a (1024, 3) array":
+            ("uv_b", torch.cat([kw["uv_b"], kw["uv_b"][:, :1]], 1)[:, :2]),
+        "uv_b transposed twice": ("uv_b", kw["uv_b"].t().contiguous().t()),
+        "desc_b 8 bytes into a buffer":
+            ("desc_b", torch.cat([kw["desc_b"].new_zeros(8), kw["desc_b"].flatten()])[8:]
+             .view(-1, 256)),
+        "desc_a 8 bytes into a buffer":
+            ("desc_a", torch.cat([kw["desc_a"].new_zeros(8), kw["desc_a"].flatten()])[8:]
+             .view(1, -1, 256)),
+        "uv_pred 4 bytes into a buffer":
+            ("uv_pred", torch.cat([kw["uv_pred"].new_zeros(1), kw["uv_pred"].flatten()])[1:]
+             .view(1, -1, 2)),
+    }
+    for what, (name, v) in views.items():
+        align = 16 if name.startswith("desc") else 8
+        if v.is_contiguous() and v.data_ptr() % align == 0:
+            raise SystemExit(f"K2 layout check: {what} is readable in place; it tests nothing")
+        got = match_projected_cuda(**dict(kw, **{name: v}), radius=12.0)
+        r = matching.match_projected_auto(**dict(kw, **{name: v}), radius=12.0)
+        torch.cuda.synchronize()
+        n_diff = sum(int((x != y).sum()) for x, y in zip(got, want))
+        if n_diff or not torch.equal(r.idx, want[2]):
+            raise SystemExit(f"K2 on {what}: {n_diff} outputs differ from the contiguous call")
+    log(f"[K2] layouts: {len(views)} views the kernel cannot read in place "
+        f"({'; '.join(views)}) give exactly the contiguous call's results")
 
 
 H100_INT8_OPS = 1979e12        # published dense int8 tensor-core peak
@@ -2993,6 +3064,230 @@ def phase_parallel(dev, frames):
     return fig
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the keyframe store at its default capacity
+
+CAPACITY_KF, CAPACITY_N = 130, 200      # 15(a): keyframes fed to the store, keypoints each
+CIRCUIT500_N = 500                      # 15(b): CIRCUIT500.json's lap
+CIRCUIT500_OUT = os.path.join(REPO, "CIRCUIT500_torch.json")   # default of --out
+RENDER_CHUNK, RENDER_WORKERS, RENDER_AHEAD = 10, 2, 4   # 15(b): frames a task, processes, tasks queued
+# 15(b)'s gates: CIRCUIT500.json (t-RPE 0.79 %, ATE 0.219 m) with the
+# headroom PERF.md section 2 gives the 220-frame circuit
+CIRCUIT500_RPE_MAX, CIRCUIT500_ATE_MAX = 0.010, 0.40
+
+
+def flip_bits(rng, desc, max_flips=20):
+    d = desc.copy()
+    for i in range(len(d)):
+        d[i, rng.choice(256, size=rng.integers(0, max_flips), replace=False)] *= -1
+    return d
+
+
+def capacity_keyframes(n_kf, N=CAPACITY_N, pool_size=60, seed=13):
+    """Synthetic keyframes as tests/test_torch_keyframes._store_pair makes
+    them (at the KITTI camera): the camera steps 0.5 m forward a keyframe,
+    descriptors come from a shared pool of 60 (shifted by 7 a keyframe, so
+    neighbours are covisible) with up to 20 bits flipped, and every fourth
+    index is one off the step of 3.  Returns (keyword dicts, pool)."""
+    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM as c
+
+    rng = np.random.default_rng(seed)
+    pool = np.where(rng.uniform(size=(pool_size, 256)) < 0.5, 1, -1).astype(np.int8)
+    kfs = []
+    for i in range(n_kf):
+        Tcw = np.eye(4, dtype=np.float32)
+        Tcw[2, 3] = -0.5 * i
+        uv = np.stack([rng.uniform(5, c["width"] - 5, N), rng.uniform(5, c["height"] - 5, N)], -1)
+        z = rng.uniform(4.0, 30.0, N)
+        Xc = np.stack([(uv[:, 0] - c["cx"]) * z / c["fx"], (uv[:, 1] - c["cy"]) * z / c["fy"], z], -1)
+        Twc = np.linalg.inv(Tcw)
+        kfs.append(dict(index=3 * i if i % 4 else 3 * i + 1, Tcw=Tcw,
+                        uv=rng.uniform(0, c["width"], (N, 2)).astype(np.float32),
+                        desc=flip_bits(rng, pool[(np.arange(N) + 7 * i) % pool_size]),
+                        valid=rng.uniform(size=N) < 0.9,
+                        Xw=(Xc @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32)))
+    return kfs, pool
+
+
+def phase_capacity_store(dev):
+    """15(a): the default-capacity store on the card against the same store
+    on the CPU, fed CAPACITY_KF keyframes: the held indices after every
+    add, and the loop candidate of a revisit of the first keyframes'
+    descriptors, past ``bow_threshold`` (the BoW path).  The pool repeats
+    every 60 keyframes, so keyframes tie in BoW similarity and the last
+    places of the shortlist may fall apart by float rounding of the
+    signatures; the exact counts of keyframes both shortlist must agree."""
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.pipeline.keyframes import Keyframe, KeyframeStore
+
+    cap = DEFAULT_CONFIG.backend.kf_capacity
+    kfs, pool = capacity_keyframes(CAPACITY_KF)
+    stores = [KeyframeStore(capacity=cap, min_gap=1, device=d) for d in (dev, "cpu")]
+    held, evicted = [], []
+    t0 = time.perf_counter()
+    for kw in kfs:
+        for st in stores:
+            st.maybe_add(Keyframe(**{k: np.copy(v) if isinstance(v, np.ndarray) else v
+                                     for k, v in kw.items()}))
+        card, cpu = ([k.index for k in st.frames] for st in stores)
+        if card != cpu:
+            raise SystemExit(f"capacity store: the card holds {card}, the CPU {cpu}")
+        evicted += sorted(set(held) - set(card))
+        held = card
+    rng = np.random.default_rng(14)
+    q = flip_bits(rng, pool[np.arange(CAPACITY_N) % len(pool)])
+    vq = rng.uniform(size=CAPACITY_N) < 0.9
+    got = []
+    for st in stores:
+        qd, vd = torch.from_numpy(q).to(st.device), torch.from_numpy(vq).to(st.device)
+        got.append((st.detect_loop(qd, vd), st.similarity_scores(qd, vd)))
+    (cand, sc_card), (cand_cpu, sc_cpu) = got
+    ms = 1e3 * (time.perf_counter() - t0)
+    both = (sc_card > 0) & (sc_cpu > 0)
+    fig = dict(capacity=cap, keyframes_fed=len(kfs), held=len(held), n_evicted=len(evicted),
+               first_evicted=evicted[:5], first_held=held[0], candidate=cand,
+               candidate_index=None if cand is None else held[cand],
+               shortlist=[int(i) for i in np.flatnonzero(sc_card)],
+               shortlist_cpu=[int(i) for i in np.flatnonzero(sc_cpu)], ms=ms)
+    log(f"[capacity store] {len(kfs)} keyframes into a store of {cap} on the card and on the "
+        f"CPU: held indices equal after every add; {len(held)} held, {len(evicted)} evicted "
+        f"(first {evicted[:5]}), first held {held[0]}; revisit of the first keyframes: "
+        f"candidate {cand} (index {fig['candidate_index']}) on the card, {cand_cpu} on the CPU; "
+        f"shortlist {fig['shortlist']} on the card, {fig['shortlist_cpu']} on the CPU, counts "
+        f"of the {int(both.sum())} shared equal: {np.array_equal(sc_card[both], sc_cpu[both])}; "
+        f"{ms:.1f} ms")
+    if not (len(held) == cap and held[0] == kfs[0]["index"] and len(evicted) == len(kfs) - cap
+            and cand is not None and cand == cand_cpu
+            and np.array_equal(sc_card[both], sc_cpu[both])):
+        raise SystemExit(f"capacity store: {fig}, CPU candidate {cand_cpu}")
+    return fig
+
+
+def render_circuit_chunk(n, times):
+    """Frames ``times`` of the ``n``-frame circuit at the KITTI camera, as a
+    whole render gives them: the renderer anchors the ground truth at its
+    first time and ends its last frame's flow at zero, so time 0 leads and
+    one time more trails, and both are dropped."""
+    import dataclasses
+
+    sys.path.insert(0, REPO)
+    from multimot_track_tpu_torch.io.synth import KITTI_SYNTH_CAM, make_circuit_frames
+
+    times = list(times)
+    ext = [0] + times + ([times[-1] + 1] if times[-1] + 1 < n else [])
+    frames = make_circuit_frames(n, cam=dict(KITTI_SYNTH_CAM), times=ext)[1:1 + len(times)]
+    return [dataclasses.replace(f, index=t) for f, t in zip(frames, times)]
+
+
+def circuit_frames_ahead(n):
+    """The ``n``-frame circuit's frames in order, rendered RENDER_CHUNK at a
+    time by RENDER_WORKERS processes ahead of the consumer."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    chunks = [range(a, min(a + RENDER_CHUNK, n)) for a in range(0, n, RENDER_CHUNK)]
+    with ProcessPoolExecutor(RENDER_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        queued = [pool.submit(render_circuit_chunk, n, c) for c in chunks[:RENDER_AHEAD]]
+        for nxt in range(RENDER_AHEAD, len(chunks) + RENDER_AHEAD):
+            frames = queued.pop(0).result()
+            if nxt < len(chunks):
+                queued.append(pool.submit(render_circuit_chunk, n, chunks[nxt]))
+            yield from frames
+
+
+def phase_capacity_circuit(dev, out_path):
+    """15(b): the 500-frame circuit through the live system at
+    DEFAULT_CONFIG, synchronous, on the card (see the module docstring)."""
+    import torch
+
+    from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    cap = DEFAULT_CONFIG.backend.kf_capacity
+    s = MultiMotSystem(DEFAULT_CONFIG, seed=0, device=dev)
+    store, added = s.keyframes, []
+    add = store.maybe_add
+
+    def counted_add(kf):
+        ok = add(kf)
+        if ok:
+            added.append(kf.index)
+        return ok
+    store.maybe_add = counted_add
+    reset_launches()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_loops, track_s, t0 = [], 0.0, time.perf_counter()
+    for i, fd in enumerate(circuit_frames_ahead(CIRCUIT500_N)):
+        t1 = time.perf_counter()
+        s.track_rgbd(fd)
+        track_s += time.perf_counter() - t1
+        if len(s.map.loop_events) > len(at_loops):
+            at_loops += [dict(frame=i, event=[int(x) for x in e[:3]], added=len(added),
+                              held=len(store.frames))
+                         for e in s.map.loop_events[len(at_loops):]]
+            log(f"[circuit500] frame {i}: loop {at_loops[-1]}")
+        if i % 50 == 49:
+            log(f"[circuit500] frame {i}: {len(store.frames)} keyframes held of "
+                f"{len(added)} added, {len(s.map.loop_events)} loops, "
+                f"{1e3 * track_s / (i + 1):.1f} ms/frame tracking")
+    t1 = time.perf_counter()
+    s.flush()
+    track_s += time.perf_counter() - t1
+    summ = s.summary()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    k1, k2 = read_launches()
+    held = [k.index for k in store.frames]
+    poses = np.stack(s.map.camera_poses)
+    fig = dict(
+        what=f"{CIRCUIT500_N}-frame circuit (io/synth.make_circuit_frames, KITTI camera) "
+             "through the port's live MultiMotSystem at DEFAULT_CONFIG, synchronous "
+             "(chip_smoke.py --capacity-only, phase 15(b)); the JAX package's record is "
+             "CIRCUIT500.json",
+        n_frames=len(poses), kf_capacity=cap, n_keyframes_added=len(added),
+        n_keyframes_stored=len(held), first_keyframe=added[0] if added else None,
+        first_keyframe_held=bool(added) and added[0] in held, held_indices=held,
+        loops_at=at_loops, n_loop_closures=summ["n_loop_closures"],
+        cam_t_rpe_rel_mean=summ["cam_t_rpe_rel_mean"], ego_ate_rmse_m=summ["ego_ate_rmse_m"],
+        ego_ate_rmse_raw_m=summ["ego_ate_rmse_raw_m"],
+        obj_t_rpe_rel_mean=summ["obj_t_rpe_rel_mean"], n_obj_estimates=summ["n_obj_estimates"],
+        poses_finite=bool(np.all(np.isfinite(poses))),
+        ms_per_frame=1e3 * track_s / len(poses), wall_s=wall,
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+        k1_launches=k1, k2_launches=k2, lm_refinements=s.n_lm_dispatched,
+        fuse_scans=store.n_fuse_scans,
+        stages_total_s={k: v["total_s"] for k, v in s.stage_report().items()},
+        card=nvidia_smi(), device=torch.cuda.get_device_name(dev), torch=torch.__version__)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(fig, f, indent=1, default=float)
+    log(f"[circuit500] wrote {out_path}")
+    log(json.dumps({k: v for k, v in fig.items() if k != "held_indices"}, default=float))
+    first = at_loops[0] if at_loops else None
+    gates = {
+        f"store size == kf_capacity ({cap})": len(held) == cap,
+        "a keyframe evicted before the first loop": first is not None
+        and first["added"] - first["held"] > 0,
+        "the first keyframe still held": fig["first_keyframe_held"],
+        ">= 1 loop closure": summ["n_loop_closures"] >= 1,
+        f"camera t-RPE <= {CIRCUIT500_RPE_MAX:.1%}": summ["cam_t_rpe_rel_mean"] is not None
+        and summ["cam_t_rpe_rel_mean"] <= CIRCUIT500_RPE_MAX,
+        f"ATE <= {CIRCUIT500_ATE_MAX} m": summ["ego_ate_rmse_m"] <= CIRCUIT500_ATE_MAX,
+        "every pose finite": fig["poses_finite"] and len(poses) == CIRCUIT500_N,
+        "K2 == local-map refinements + fuse scans":
+            k2 == s.n_lm_dispatched + store.n_fuse_scans > 0,
+    }
+    for name, ok in gates.items():
+        log(f"[circuit500] gate {name}: {'met' if ok else 'FAILED'}")
+    if not all(gates.values()):
+        raise SystemExit("circuit500: " + ", ".join(k for k, ok in gates.items() if not ok))
+    return fig
+
+
 def main(argv) -> int:
     import torch
 
@@ -3040,6 +3335,11 @@ def main(argv) -> int:
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"parallel": phase_parallel(dev, frames)}))
         return 0
+    if "--capacity-only" in argv:           # phases 1, 2 and 15 alone, no result lines
+        out = os.path.abspath(argv[argv.index("--out") + 1]) if "--out" in argv else CIRCUIT500_OUT
+        log(json.dumps({"capacity_store": phase_capacity_store(dev)}, default=float))
+        phase_capacity_circuit(dev, out)
+        return 0
     if "--entry-only" in argv:              # phases 1, 2 and 11 alone, no result lines
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
@@ -3086,6 +3386,8 @@ def main(argv) -> int:
     parallel = phase_parallel(dev, frames)
     log(json.dumps({"parallel": parallel}))
     lap("phase 14")
+    log(json.dumps({"capacity_store": phase_capacity_store(dev)}, default=float))
+    lap("phase 15(a)")
     log(json.dumps({"streaming_idle": phase_streaming_idle(dev, frames)}))
     lap("phase 4(c)")
 

@@ -4,8 +4,9 @@ The kernel (csrc/match_projected.cu) replaces the TPU kernel
 ``multimot_track_tpu.ops.pallas_match.fused_match_projected``: per query it
 returns the best and second-best gated Hamming distance and the best index
 without forming the N x M matrix.  It packs the descriptors' signs on chip
-and writes the int64 index itself, so this wrapper only checks its inputs,
-allocates the outputs with ``torch.empty``, launches once on PyTorch's
+and writes the int64 index itself, so this wrapper only checks its inputs
+(copying one whose layout the kernel cannot read in place), allocates the
+outputs with ``torch.empty``, launches once on PyTorch's
 current stream and raises if the launch is refused.
 ``match_projected_cuda.launches`` counts launches.  The plain version is
 ``ops/matching.match_projected_plain``; there is no fallback to it here.
@@ -91,12 +92,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_layout(name: str, t: torch.Tensor, align: int) -> None:
-    """The kernel reads ``t`` in place: contiguous, ``align``-byte aligned."""
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous (strides {t.stride()})")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name} must start on a {align}-byte boundary (pointer {t.data_ptr()})")
+def _readable(t: torch.Tensor, align: int) -> torch.Tensor:
+    """``t`` itself when the kernel can read it in place (contiguous and
+    ``align``-byte aligned), else a contiguous copy, which a fresh
+    allocation aligns."""
+    if t.is_contiguous() and t.data_ptr() % align == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def match_projected_cuda(
@@ -110,9 +112,10 @@ def match_projected_cuda(
 ):
     """Returns (best, second, idx), each (..., N): float32, float32, int64.
     Same contract as ``matching.match_projected_plain``; every leading axis
-    of the queries is one batch of the single launch.  The tensors are read
-    in place: each must be contiguous (and aligned, as fresh allocations
-    are)."""
+    of the queries is one batch of the single launch.  The kernel reads a
+    contiguous tensor with descriptors 16-byte and positions 8-byte aligned
+    in place (fresh allocations are); any other layout, such as a column
+    slice ``uv[:, :2]`` or a view at an odd offset, is copied to one first."""
     lead, n = tuple(desc_a.shape[:-2]), desc_a.shape[-2]
     m = desc_b.shape[0]
     named = (("desc_a", desc_a, lead + (n, 256), torch.int8),
@@ -125,7 +128,6 @@ def match_projected_cuda(
     for name, t, shape, dtype in named:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
-        _check_layout(name, t, {torch.int8: 16, torch.float32: 8, torch.bool: 1}[dtype])
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, desc_a on {dev}")
     if m < 1:
@@ -133,6 +135,8 @@ def match_projected_cuda(
     if not desc_a.is_cuda:
         raise ValueError("match_projected_cuda needs CUDA tensors; "
                          "use backend='torch' for CPU tensors")
+    named = tuple((name, _readable(t, {torch.int8: 16, torch.float32: 8, torch.bool: 1}[dtype]),
+                   shape, dtype) for name, t, shape, dtype in named)
     best = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     second = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
     idx = torch.empty(lead + (n,), dtype=torch.int64, device=dev)

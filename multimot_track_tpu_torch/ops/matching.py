@@ -112,11 +112,10 @@ def match_projected_auto(desc_a, uv_pred, valid_a, desc_b, uv_b, valid_b,
     """Backend dispatch, shaped like ``solvers.flow_ba.solve_flow_ba_auto``.
     ``"auto"``: kernel K2 for CUDA tensors, the plain version for CPU
     tensors.  ``"cuda"`` on a CPU tensor raises; ``"torch"`` forces the
-    plain version.  A kernel that fails to build or launch raises.  The
-    kernel reads its inputs in place, so on CUDA each must be contiguous,
-    with descriptors 16-byte and positions 8-byte aligned (as fresh
-    allocations are; a slice such as ``uv[:, :2]`` is not): the kernel
-    route raises on any other layout, which the plain version accepts."""
+    plain version.  A kernel that fails to build or launch raises.  Both
+    routes take inputs of any layout, as the JAX function does: the kernel
+    route copies an input it cannot read in place (not contiguous, or a
+    view whose start is not aligned) to a contiguous one first."""
     if backend not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown match backend {backend!r}")
     if backend == "cuda" or (backend == "auto" and desc_a.is_cuda):

@@ -32,9 +32,11 @@ from multimot_track_tpu.pipeline import motion_seg as jms
 from multimot_track_tpu_torch.ops import graphcut as tgc
 from multimot_track_tpu_torch.pipeline import motion_seg as tms
 from multimot_track_tpu_torch.solvers.ransac import Sites
+import test_graphcut
 from test_graphcut import two_motion_scene
 from test_motion_seg import synth_pair
 from test_torch_ransac import JaxKeySampler
+from torch_seeding import seeded
 
 torch.set_num_threads(1)
 
@@ -61,7 +63,7 @@ def _graph_t(g):
 
 def _two_motion_problem(n_hyp=16):
     """The JAX package's problem tensors on the two-motion fixture."""
-    uv, Xw, Xc, uv_cur, n_per = two_motion_scene()
+    uv, Xw, Xc, uv_cur, n_per = seeded(test_graphcut, 5, two_motion_scene)
     valid = jnp.ones(uv.shape[0], bool)
     g = jgc.build_knn_graph(jnp.asarray(uv_cur), valid, k=6)
     hyp = jgc.sample_motion_hypotheses(jax.random.PRNGKey(0), g, jnp.asarray(Xw),

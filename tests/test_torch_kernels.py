@@ -337,14 +337,6 @@ def test_match_plan_covers_every_reference_once(rows, M):
     (dict(valid_a=lambda a: a.to(torch.uint8)), "valid_a"),
     (dict(desc_b=lambda a: a[:, :128]), "desc_b"),
     (dict(valid_b=lambda a: a[:-1]), "valid_b"),
-    (dict(desc_a=lambda a: torch.cat([a, a], -1)[..., ::2]), "desc_a must be contiguous"),
-    (dict(uv_pred=lambda a: a.transpose(0, 1).contiguous().transpose(0, 1)),
-     "uv_pred must be contiguous"),
-    (dict(valid_b=lambda a: torch.stack([a, a], 1)[:, 0]), "valid_b must be contiguous"),
-    (dict(uv_b=lambda a: torch.cat([torch.zeros(1), a.flatten()])[1:].view(-1, 2)),
-     "uv_b must start on a 8-byte"),
-    (dict(desc_b=lambda a: torch.cat([a.new_zeros(8), a.flatten()])[8:].view(-1, 256)),
-     "desc_b must start on a 16-byte"),
     (dict(desc_b=lambda a: a[:0], uv_b=lambda a: a[:0], valid_b=lambda a: a[:0]),
      "at least one reference"),
 ])
@@ -356,6 +348,47 @@ def test_match_wrapper_checks_raise_before_any_cuda_call(monkeypatch, bad, match
         kw[name] = fix(kw[name])
     with pytest.raises(ValueError, match=match):
         match_projected_cuda(**kw, radius=12.0)
+
+
+# layouts the kernel cannot read in place: (input, view of it, alignment the
+# kernel needs), each with the same values as the contiguous tensor
+MATCH_LAYOUTS = {
+    "desc_a strided": ("desc_a", lambda a: torch.stack([a, a], -1)[..., 0], 16),
+    "uv_pred transposed": ("uv_pred", lambda a: a.transpose(0, 1).contiguous().transpose(0, 1), 8),
+    "uv_pred column slice": ("uv_pred", lambda a: torch.cat([a, a], -1)[..., :2], 8),
+    "valid_b strided": ("valid_b", lambda a: torch.stack([a, a], 1)[:, 0], 1),
+    "uv_b offset": ("uv_b", lambda a: torch.cat([a.new_zeros(1), a.flatten()])[1:].view(-1, 2), 8),
+    "desc_b offset": ("desc_b", lambda a: torch.cat([a.new_zeros(8), a.flatten()])[8:].view(-1, 256),
+                      16),
+}
+
+
+@pytest.mark.parametrize("case", list(MATCH_LAYOUTS))
+def test_match_wrapper_copies_a_layout_it_cannot_read(case):
+    """The JAX function takes any layout; K2's wrapper hands the kernel a
+    contiguous, aligned copy of an input it cannot read in place, and the
+    input itself when it can."""
+    name, view, align = MATCH_LAYOUTS[case]
+    names = ("desc_a", "uv_pred", "valid_a", "desc_b", "uv_b", "valid_b")
+    t = dict(zip(names, match_problem(2, 24, 40, 12.0)))[name]
+    v = view(t)
+    assert torch.equal(v, t) and not (v.is_contiguous() and v.data_ptr() % align == 0)
+    r = match_cuda._readable(v, align)
+    assert r.is_contiguous() and r.data_ptr() % align == 0 and torch.equal(r, t)
+    assert match_cuda._readable(t, align) is t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(MATCH_LAYOUTS))
+def test_match_kernel_any_layout_equals_contiguous_call(cuda_device, case):
+    name, view, _ = MATCH_LAYOUTS[case]
+    names = ("desc_a", "uv_pred", "valid_a", "desc_b", "uv_b", "valid_b")
+    kw = dict(zip(names, match_problem(2, 300, 500, 12.0, seed=5, device=cuda_device)))
+    want = match_projected_cuda(**kw, radius=12.0)
+    kw[name] = view(kw[name])
+    got = match_projected_cuda(**kw, radius=12.0)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def _merge(lo, hi):

@@ -18,13 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from multimot_track_tpu import config as jconfig
 from multimot_track_tpu.geometry import se3 as jse3
 from multimot_track_tpu.pipeline import keyframes as jkf
 from multimot_track_tpu.solvers import pnp as jpnp
 from multimot_track_tpu.solvers import ransac as jransac
+from multimot_track_tpu_torch import config as tconfig
 from multimot_track_tpu_torch.pipeline import keyframes as tkf
 from multimot_track_tpu_torch.solvers import pnp as tpnp
 from multimot_track_tpu_torch.solvers import ransac as transac
+from test_torch_bow import jax_vocab_seed
 from test_torch_ransac import JaxKeySampler
 
 torch.set_num_threads(1)
@@ -152,12 +155,14 @@ def test_fuse_scan_matches_jax(fuse_scene):
     assert pj[0].sum() > 100 and (pj[1] == 0).any()
 
 
-def _store_pair(rng, n_kf, N=200, capacity=64, gap=1, pool_size=60):
+def _store_pair(rng, n_kf, N=200, capacity=64, gap=1, pool_size=60, after_add=None,
+                vocab_seed=None):
     """The same keyframes in a JAX store and a port store; descriptors from
-    a shared pool so neighbours are covisible."""
+    a shared pool so neighbours are covisible.  ``after_add(js, ts)`` runs
+    after each keyframe; ``vocab_seed`` goes to the port store."""
     pool = np.where(rng.uniform(size=(pool_size, 256)) < 0.5, 1, -1).astype(np.int8)
     js, ts = jkf.KeyframeStore(capacity=capacity, min_gap=gap), \
-        tkf.KeyframeStore(capacity=capacity, min_gap=gap, device="cpu")
+        tkf.KeyframeStore(capacity=capacity, min_gap=gap, device="cpu", vocab_seed=vocab_seed)
     for i in range(n_kf):
         T = _pose([0.0, 0.0, 0.0, 0.0, 0.0, 0.5 * i])
         desc = _flip(rng, pool[(np.arange(N) + 7 * i) % pool_size], max_flips=20)
@@ -166,6 +171,8 @@ def _store_pair(rng, n_kf, N=200, capacity=64, gap=1, pool_size=60):
                   valid=rng.uniform(size=N) < 0.9, Xw=_points(rng, N, T))
         js.maybe_add(jkf.Keyframe(**{k: np.copy(v) for k, v in kw.items()}))
         ts.maybe_add(tkf.Keyframe(**{k: np.copy(v) for k, v in kw.items()}))
+        if after_add is not None:
+            after_add(js, ts)
     return js, ts, pool
 
 
@@ -187,6 +194,38 @@ def test_store_scores_culling_and_eviction_match_jax():
     js2, ts2, _ = _store_pair(np.random.default_rng(6), 14, capacity=8)
     assert len(ts2.frames) == 8
     assert [k.index for k in ts2.frames] == [k.index for k in js2.frames]
+
+
+def test_store_at_the_default_capacity_evicts_and_retrieves_as_jax():
+    """130 keyframes into stores of the default ``kf_capacity`` (96): the
+    same skeleton evictions in the same order and the same held indices
+    after every add; then, past ``bow_threshold``, the same loop candidate
+    and scores for a revisit of the first keyframes' descriptors (the
+    vocabulary's k-means seeds replayed from the JAX draw)."""
+    cap = tconfig.DEFAULT_CONFIG.backend.kf_capacity
+    assert cap == jconfig.DEFAULT_CONFIG.backend.kf_capacity == 96
+    held, evicted = {"jax": [], "port": []}, {"jax": [], "port": []}
+
+    def after_add(js, ts):
+        for name, st in (("jax", js), ("port", ts)):
+            now = [k.index for k in st.frames]
+            evicted[name] += [i for i in held[name] if i not in now]
+            held[name] = now
+        assert held["port"] == held["jax"]
+
+    rng = np.random.default_rng(9)
+    js, ts, pool = _store_pair(rng, 130, capacity=cap, after_add=after_add,
+                               vocab_seed=jax_vocab_seed)
+    assert evicted["port"] == evicted["jax"] and len(evicted["port"]) == 130 - cap
+    assert len(ts.frames) == cap and ts.frames[0].index == 1     # the skeleton keeps the first
+    assert len(ts.frames) > ts.bow_threshold == js.bow_threshold
+    q = _flip(rng, pool[np.arange(200) % 60], max_flips=20)
+    vq = rng.uniform(size=200) < 0.9
+    st = ts.similarity_scores(_t(q), _t(vq))
+    np.testing.assert_array_equal(st, js.similarity_scores(jnp.asarray(q), jnp.asarray(vq)))
+    cand = ts.detect_loop(_t(q), _t(vq))
+    assert cand is not None and st.max() >= 40
+    assert cand == js.detect_loop(jnp.asarray(q), jnp.asarray(vq))
 
 
 def test_store_local_map_and_fuse_and_cull_match_jax():

@@ -50,10 +50,13 @@ from multimot_track_tpu_torch.pipeline import batch as tbatch
 from multimot_track_tpu_torch.pipeline.frames import tree_map
 from multimot_track_tpu_torch.solvers.flow_ba import FlowBAParams, solve_flow_ba
 from multimot_track_tpu_torch.solvers.window_ba import WindowBAParams, solve_window_ba
+import test_parallel
+import test_window_ba
 from test_parallel import CAM, synth
 from test_torch_ransac import JaxKeySampler
 from test_torch_tracker import JCFG, TCFG, K, S, T_TOL
 from test_window_ba import make_window
+from torch_seeding import reseeded
 
 torch.set_num_threads(1)
 
@@ -100,6 +103,19 @@ class Recorder:
 def flow_ba_problem():
     uv, z, flow, T_true = synth()
     return dict(uv=uv, z=z, flow=flow, T_true=T_true, valid=np.ones(uv.shape[0], bool))
+
+
+def window_problem():
+    uvw, alive, zm, init, _, _ = make_window(N=512)
+    return dict(uv=uvw, alive=alive, z=zm, init=init)
+
+
+def solver_problems():
+    """The flow-BA problem, the window and the pairwise batch, drawn as a
+    fresh process draws them: from the JAX test modules' generators at their
+    own seeds, which stay where they were."""
+    with reseeded(test_parallel, 3), reseeded(test_window_ba, 21):
+        return flow_ba_problem(), window_problem(), pairwise_problem()
 
 
 def pairwise_problem():
@@ -226,10 +242,7 @@ def run(tmp_path_factory):
     """Inputs, the recorded draws, both rank groups' reports and the JAX
     side's results."""
     base = tmp_path_factory.mktemp("torch_parallel")
-    fba = flow_ba_problem()
-    uvw, alive, zm, init, _, _ = make_window(N=512)
-    window = dict(uv=uvw, alive=alive, z=zm, init=init)
-    cfg_j, cfg_t, pw_inputs, pw_T = pairwise_problem()
+    fba, window, (cfg_j, cfg_t, pw_inputs, pw_T) = solver_problems()
     trk = tracker_problem()
     n_pairs = trk["pairs"][1].shape[0]
 
@@ -247,8 +260,8 @@ def run(tmp_path_factory):
         ("window_ba", dict(kind="window_ba", iters=WINDOW_ITERS, cam=CAM4,
                            **{k: _t(v) for k, v in window.items()})),
         ("window_uneven", dict(kind="window_ba", iters=1, cam=CAM4,   # 511 tracks
-                               uv=_t(uvw[:, :-1]), alive=_t(alive[:, :-1]), z=_t(zm[:-1]),
-                               init=_t(init))),
+                               uv=_t(window["uv"][:, :-1]), alive=_t(window["alive"][:, :-1]),
+                               z=_t(window["z"][:-1]), init=_t(window["init"]))),
         ("multihost", dict(kind="multihost", B_local=4)),
     ]
     jobs = {2: common + [("pairwise", dict(kind="pairwise", cfg=cfg_t, draws=rec_pw.draws,

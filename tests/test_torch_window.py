@@ -47,6 +47,7 @@ from multimot_track_tpu_torch.solvers import window_ba as twba
 import test_multi_window
 import test_window_ba
 from test_torch_tracker import small_config
+from torch_seeding import seeded
 
 torch.set_num_threads(1)
 
@@ -216,18 +217,13 @@ def test_build_window_tracks_end_to_end(frames):
 
 # ------------------------------------------------------------------- solvers
 
-def _seeded(module, seed, make, *args):
-    """``make(*args)`` with ``module.RNG`` reseeded: the fixture makers of
-    the JAX package's tests draw from a module-level generator, which the
-    tests of that module advance when they share this process."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(module, "RNG", np.random.default_rng(seed))
-        return make(*args)
+def make_solver_window():
+    return seeded(test_window_ba, 21, test_window_ba.make_window)
 
 
 @pytest.fixture(scope="module")
 def window():
-    return _seeded(test_window_ba, 21, test_window_ba.make_window)
+    return make_solver_window()
 
 
 @pytest.mark.parametrize("odo", [0.0, 2500.0])
@@ -265,7 +261,7 @@ def make_multiwindow():
     object points pushed off by 5 px (the gate drops them)."""
     rng = np.random.default_rng(52)
     F, K = 4, 2
-    poses, H_stack, st_uv, st_flow, st_z, ob_uv, ob_flow, ob_z = _seeded(
+    poses, H_stack, st_uv, st_flow, st_z, ob_uv, ob_flow, ob_z = seeded(
         test_multi_window, 51, test_multi_window.synth_multiwindow, F, K)
     p_init = [poses[0]]
     for f in range(1, F):
