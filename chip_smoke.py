@@ -247,12 +247,37 @@ Phases, in order; any failure exits non-zero before the result lines:
      ``--out PATH``): loops with the keyframes added and held at each, ms
      per frame of tracking, stage totals, peak memory, K1 / K2 launches,
      the card's name and power limit.
-Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13, 14, 15(a) and 4(c), one JSON
+  16. the JAX package's behaviour gates (tests/test_robustness.py,
+     test_multimover.py, test_marathon.py, test_precision.py) on the card,
+     through K1 and K2; the scenes and configurations come from
+     ``tools/behaviour_ref.py``, the JAX package's values from
+     ``tools/behaviour_ref.json`` (written by ``tools/behaviour_ref.py
+     record`` on the CPU).  (a) The five degenerate cases (zero depth, a
+     fully masked frame, NaN flow, saturated depth, single-pixel objects),
+     three frames each at 1242x375 through ``MultiMotSystem`` at
+     DEFAULT_CONFIG: a result for every pair, every pose finite, no object
+     active in the single-pixel case.  (b) ``make_multimover_frames(8)`` at
+     ``k_obj_max`` 8 and 4, keyframes off: at the CPU tests'
+     configuration the record table (labels, frames, track IDs) equal to
+     the JAX package's and each label's median t-RPE within 1e-3; at
+     DEFAULT_CONFIG's padding and solver, test_multimover.py's gates.  (c)
+     The 17-frame marathon shuttle at keyframe capacity 5, synchronous and
+     pipelined: the JAX package's loop events (inliers +-2) and held
+     indices in that mode, 17 finite poses, every held keyframe's pose its
+     trajectory row's, an eviction, K2 launches == local-map refinements +
+     fuse scans.  (d) K1 (float32) against the plain solve in float64 on
+     test_precision.py's problem (N = 1024, seed 17) and on 18 such
+     problems at N = 4096 (seeds 17-34): max |dT| < 1e-4 and at most 5
+     flips at chi2 0.04 an instance.  Each scene's ms per frame, K1 / K2
+     launches and peak memory, with the card's name and power limit.
+     ``--behaviour-only`` runs phases 1, 2 and 16.
+Then the loop figures' JSON line, the JSON lines of phases 9-10, 11, 12, 13, 14, 15(a), 16 and 4(c), one JSON
 line of kernel figures (K1's launches from the synchronous live run, K2's
 from it and, as ``mono_launches``, from phase 12's 8 frames with the
 backend on; as ``circuit_launches``, each kernel's from phase 13(a); as
 ``parallel_launches`` and ``pairwise_launches``, K1's from phase 14(a)'s
-tracker and its ``solve_relative_batch``), the nvidia-smi line, and
+tracker and its ``solve_relative_batch``; as ``behaviour_launches``, each
+kernel's from phase 16(c)'s synchronous marathon), the nvidia-smi line, and
 the final ``{"ok": true, "device": ...}`` line.
 Imports nothing of JAX.
 """
@@ -3288,6 +3313,233 @@ def phase_capacity_circuit(dev, out_path):
     return fig
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the JAX package's behaviour gates on the card
+
+MEDIAN_TOL = 1e-3               # a label's median t-RPE against the JAX package's
+LOOP_INLIER_TOL = 2             # a loop's Sim3 inliers (tests/test_torch_loop_live.py)
+PRECISION_TOL, PRECISION_FLIPS = 1e-4, 5     # tests/test_precision.py
+PRECISION_BATCH = (18, 4096)    # K1's live object shape: seeds 17.. at N = 4096
+
+
+def behaviour_ref():
+    """tools/behaviour_ref.py: the gates' scenes and the JAX package's values."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "behaviour_ref", os.path.join(REPO, "tools", "behaviour_ref.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def behaviour_run(dev, tag, system, frames, figs):
+    """Every frame through ``system``, then flush; the delivered results.
+    Adds the scene's ms per frame (track_rgbd, upload included), K1 / K2
+    launches and peak memory to ``figs[tag]``."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = [system.track_rgbd(fd) for fd in frames]
+    out.append(system.flush())
+    torch.cuda.synchronize(dev)
+    k1, k2 = read_launches()
+    figs[tag] = dict(ms_per_frame=1e3 * (time.perf_counter() - t0) / len(frames),
+                     k1_launches=k1, k2_launches=k2,
+                     peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return out
+
+
+def check_gates(tag, gates, figs):
+    for name, ok in gates.items():
+        log(f"[behaviour] {tag}: gate {name}: {'met' if ok else 'FAILED'}")
+    figs[tag]["gates"] = len(gates)
+    if not all(gates.values()):
+        raise SystemExit(f"behaviour {tag}: " + ", ".join(k for k, ok in gates.items() if not ok))
+
+
+def multimover_gates(s, k_obj):
+    """tests/test_multimover.py's gates at ``k_obj_max`` 8 or 4."""
+    recs = [r for r in s.map.obj_records if r.has_gt]
+    labels = {}
+    for r in recs:
+        labels.setdefault(r.sem_label, []).append(r)
+    meds = {k: float(np.median([r.t_rpe_rel for r in v])) for k, v in labels.items()}
+    cam = s.summary()["cam_t_rpe_rel_mean"]
+    gates = {"records with ground truth": bool(recs),
+             "every label's median t-RPE < 0.10": all(m < 0.10 for m in meds.values())}
+    if k_obj == 4:
+        gates.update({"labels <= 4": all(r.sem_label <= 4 for r in recs),
+                      ">= 3 labels": len(labels) >= 3,
+                      "camera t-RPE finite": cam is not None and np.isfinite(cam)})
+        return gates
+    sp = [r.speed_err_rel for r in recs if np.isfinite(r.speed_err_rel)]
+    ids = {k: {r.track_id for r in labels.get(k, [])} for k in (1, 2)}
+    gates.update({">= 4 labels": len(labels) >= 4,
+                  "median speed error < 0.20": bool(sp) and float(np.median(sp)) < 0.20,
+                  "camera t-RPE < 0.05": cam is not None and cam < 0.05,
+                  "mover 1 keeps one track ID": len(ids[1]) == 1,
+                  "mover 2 never takes mover 1's": ids[1].isdisjoint(ids[2]),
+                  "mover 4 born at frame 3 or later":
+                      all(r.frame >= 3 for r in labels.get(4, [])),
+                  "mover 5 gone after frame 4": all(r.frame <= 4 for r in labels.get(5, []))})
+    return gates
+
+
+def phase_behaviour(dev):
+    """Phase 16: the JAX package's behaviour gates on the card, through K1
+    and K2, at the CPU gate tests' configurations (held to the JAX
+    package's values in tools/behaviour_ref.json) and at DEFAULT_CONFIG's
+    widths (held to the JAX tests' own gates)."""
+    import torch
+
+    from multimot_track_tpu_torch import config as C
+    from multimot_track_tpu_torch.io import synth
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+    from multimot_track_tpu_torch.solvers import flow_ba
+    from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+
+    br = behaviour_ref()
+    ref = br.load()
+    figs, t_phase = {}, time.perf_counter()
+    cam = C.DEFAULT_CONFIG.camera
+
+    # (a) tests/test_robustness.py's five cases at the camera's size
+    for case in br.DEGENERATE:
+        tag = f"degenerate {case}"
+        s = MultiMotSystem(C.DEFAULT_CONFIG, device=dev)
+        res = behaviour_run(dev, tag, s, br.degenerate_frames(case, cam.height, cam.width), figs)
+        s_res = res[1:-1]
+        gates = {"a result for every pair": all(r is not None for r in s_res),
+                 "every pose finite": all(r is not None and np.isfinite(r.Tcw_cur).all()
+                                          for r in s_res),
+                 "the trajectory finite": all(np.isfinite(T).all() for T in s.map.camera_poses)}
+        if case == "single_pixel_objects":
+            gates["no object active"] = not any(np.asarray(r.objects.active).any()
+                                                for r in s_res if r is not None)
+        check_gates(tag, gates, figs)
+
+    # (b) six movers at k_obj_max 8 and 4
+    mm_frames = synth.make_multimover_frames(n_frames=br.MULTIMOVER_N)
+    for k in (8, 4):
+        tag = f"multimover k{k} test config"
+        s = MultiMotSystem(br.multimover_config(C, synth.synth_camera_config(), k),
+                           enable_keyframes=False, device=dev)
+        behaviour_run(dev, tag, s, mm_frames, figs)
+        table, want = br.multimover_table(s), ref[f"multimover_k{k}"]
+        d_med = max(abs(table["labels"][lab]["median_t_rpe"] - v["median_t_rpe"])
+                    for lab, v in want["labels"].items() if lab in table["labels"])
+        figs[tag].update(max_median_diff=d_med, cam_t_rpe=table["cam_t_rpe_rel_mean"],
+                         cam_t_rpe_jax=want["cam_t_rpe_rel_mean"])
+        log(f"[behaviour] {tag}: labels {sorted(table['labels'])}, max |d median t-RPE| "
+            f"{d_med:.3e}, camera t-RPE {table['cam_t_rpe_rel_mean']:.7f} (JAX "
+            f"{want['cam_t_rpe_rel_mean']:.7f})")
+        same = {lab: (v["frames"], v["track_ids"]) for lab, v in table["labels"].items()} == \
+            {lab: (v["frames"], v["track_ids"]) for lab, v in want["labels"].items()}
+        check_gates(tag, {"record table == the JAX package's": same,
+                          f"median t-RPE within {MEDIAN_TOL}": d_med <= MEDIAN_TOL}, figs)
+        tag = f"multimover k{k} full width"
+        s = MultiMotSystem(br.multimover_config(C, synth.synth_camera_config(), k,
+                                                full_width=True),
+                           enable_keyframes=False, device=dev)
+        behaviour_run(dev, tag, s, mm_frames, figs)
+        figs[tag]["cam_t_rpe"] = s.summary()["cam_t_rpe_rel_mean"]
+        check_gates(tag, multimover_gates(s, k), figs)
+
+    # (c) the 17-frame marathon at capacity 5, sync and pipelined
+    mar_frames = br.marathon_frames(synth)
+    for mode in ("sync", "pipelined"):
+        tag = f"marathon {mode}"
+        want = ref["marathon" if mode == "sync" else "marathon_pipelined"]
+        s = MultiMotSystem(br.marathon_config(C, synth.synth_camera_config()), device=dev,
+                           pipelined=mode == "pipelined", **br.MARATHON_KW)
+        s.keyframes.capacity = br.MARATHON_CAPACITY
+        added = br.count_adds(s)
+        behaviour_run(dev, tag, s, mar_frames, figs)
+        summ = br.marathon_summary(s, added)
+        poses = s.map.camera_poses
+        k2 = figs[tag]["k2_launches"]
+        figs[tag].update(loop_events=summ["loop_events"], held=summ["held"],
+                         added=summ["added"], ate_m=s.ate(),
+                         max_pose_diff=float(np.abs(np.asarray(summ["poses"])
+                                                    - np.asarray(want["poses"])).max()),
+                         lm_refinements=s.n_lm_dispatched, fuse_scans=s.keyframes.n_fuse_scans)
+        log(f"[behaviour] {tag}: loops {summ['loop_events']} (JAX {want['loop_events']}), "
+            f"held {summ['held']} (JAX {want['held']}), added {summ['added']}, max |dT| "
+            f"against the JAX poses {figs[tag]['max_pose_diff']:.3e}, ATE {s.ate():.4f} m")
+        ev, ev_j = summ["loop_events"], want["loop_events"]
+        check_gates(tag, {
+            "loop events == the JAX package's": [e[:2] for e in ev] == [e[:2] for e in ev_j]
+            and all(abs(a[2] - b[2]) <= LOOP_INLIER_TOL for a, b in zip(ev, ev_j)),
+            "held indices == the JAX package's": summ["held"] == want["held"],
+            "17 finite poses": len(poses) == len(br.MARATHON_ORDER)
+            and all(np.isfinite(T).all() for T in poses),
+            "every held keyframe's row is its frame index": all(
+                np.abs(kf.Tcw - np.linalg.inv(poses[kf.index])).max() <= 1e-3
+                for kf in s.keyframes.frames),
+            ">= 1 eviction": len(summ["added"]) > len(summ["held"]),
+            "K2 == local-map refinements + fuse scans":
+                k2 == s.n_lm_dispatched + s.keyframes.n_fuse_scans > 0,
+        }, figs)
+
+    # (d) K1 against a float64 solve: test_precision.py's problem and 18 x 4096
+    params = flow_ba.FlowBAParams(iters=br.PRECISION_ITERS)
+    c = C.CameraConfig()
+    for tag, seeds, n in (("precision 1 x 1024", [br.PRECISION_SEED], br.PRECISION_N),
+                          (f"precision {PRECISION_BATCH[0]} x {PRECISION_BATCH[1]}",
+                           range(br.PRECISION_SEED, br.PRECISION_SEED + PRECISION_BATCH[0]),
+                           PRECISION_BATCH[1])):
+        probs = [br.precision_problem(sd, n) for sd in seeds]
+        M = len(probs)
+
+        def stacked(i, dtype):
+            return torch.as_tensor(np.stack([p[i] for p in probs]), dtype=dtype, device=dev)
+
+        def args(dtype):
+            eye = torch.eye(4, dtype=dtype, device=dev).expand(M, 4, 4).contiguous()
+            return (eye, eye, stacked(0, dtype), stacked(2, dtype), stacked(1, dtype),
+                    torch.ones(M, n, dtype=torch.bool, device=dev), c.fx, c.fy, c.cx, c.cy)
+        a32 = args(torch.float32)
+        solve_flow_ba_cuda(*a32, params=params)          # warm-up
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out32 = solve_flow_ba_cuda(*a32, params=params)
+        torch.cuda.synchronize(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        k1, _ = read_launches()
+        out64 = flow_ba.solve_flow_ba(*args(torch.float64), params=params)
+        dT = (out32.T.double() - out64.T).abs().amax((1, 2)).cpu().numpy()
+        flips = ((out32.chi2.double() < br.PRECISION_GATE)
+                 != (out64.chi2 < br.PRECISION_GATE)).sum(1).cpu().numpy()
+        truth = np.stack([p[3] for p in probs])
+        d_truth = np.abs(out64.T.cpu().numpy() - truth).max()
+        figs[tag] = dict(ms_per_call=ms, k1_launches=k1, max_abs_err=float(dT.max()),
+                         max_flips=int(flips.max()), f64_to_truth=float(d_truth),
+                         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        log(f"[behaviour] {tag}: K1 (float32) against the plain solve in float64: max |dT| "
+            f"{dT.max():.3e} (worst instance), flips at {br.PRECISION_GATE} at most "
+            f"{int(flips.max())} an instance, float64 to the truth {d_truth:.3e}; K1 "
+            f"{ms:.3f} ms a call (after a warm-up call), {k1} launch")
+        check_gates(tag, {f"max |dT| < {PRECISION_TOL}": float(dT.max()) < PRECISION_TOL,
+                          f"<= {PRECISION_FLIPS} flips an instance":
+                              int(flips.max()) <= PRECISION_FLIPS,
+                          "float64 within 5e-3 of the truth": d_truth < 5e-3,
+                          "one K1 launch": k1 == 1}, figs)
+
+    secs = time.perf_counter() - t_phase
+    for tag, f in figs.items():
+        if "ms_per_frame" in f:
+            log(f"[behaviour] {tag}: {f['ms_per_frame']:.1f} ms/frame, K1 {f['k1_launches']}, "
+                f"K2 {f['k2_launches']}, peak {f['peak_mem_gib']:.3f} GiB")
+    log(f"[behaviour] phase 16 took {secs:.1f} s | {nvidia_smi()}")
+    return dict(scenes=figs, seconds=secs, card=nvidia_smi())
+
+
 def main(argv) -> int:
     import torch
 
@@ -3340,6 +3592,9 @@ def main(argv) -> int:
         log(json.dumps({"capacity_store": phase_capacity_store(dev)}, default=float))
         phase_capacity_circuit(dev, out)
         return 0
+    if "--behaviour-only" in argv:          # phases 1, 2 and 16 alone, no result lines
+        log(json.dumps({"behaviour": phase_behaviour(dev)}, default=float))
+        return 0
     if "--entry-only" in argv:              # phases 1, 2 and 11 alone, no result lines
         frames = make_junction_frames(n_frames=12, cam=dict(KITTI_SYNTH_CAM))
         log(json.dumps({"entry": phase_entry(dev, frames, None, log_dir)}))
@@ -3388,6 +3643,9 @@ def main(argv) -> int:
     lap("phase 14")
     log(json.dumps({"capacity_store": phase_capacity_store(dev)}, default=float))
     lap("phase 15(a)")
+    behaviour = phase_behaviour(dev)
+    log(json.dumps({"behaviour": behaviour}, default=float))
+    lap("phase 16")
     log(json.dumps({"streaming_idle": phase_streaming_idle(dev, frames)}))
     lap("phase 4(c)")
 
@@ -3401,6 +3659,7 @@ def main(argv) -> int:
         "circuit_launches": surface["circuit"]["k1_launches"],
         "parallel_launches": parallel["tracker"]["k1_launches"],
         "pairwise_launches": parallel["pairwise"]["k1_launches"],
+        "behaviour_launches": behaviour["scenes"]["marathon sync"]["k1_launches"],
         "max_abs_err": max(f["max_abs_err"] for f in k1),
         "ms": obj["ms"],
         "plain_ms": obj["plain_ms"],
@@ -3415,6 +3674,7 @@ def main(argv) -> int:
         "launches": live["k2_launches"],
         "mono_launches": mono["backend on"]["k2_launches"],
         "circuit_launches": surface["circuit"]["k2_launches"],
+        "behaviour_launches": behaviour["scenes"]["marathon sync"]["k2_launches"],
         "max_abs_err": max(f["max_abs_err"] for f in k2 + mono["k2_calls"]),
         "ms": lm["ms"],
         "plain_ms": lm["plain_ms"],

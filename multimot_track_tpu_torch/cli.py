@@ -119,6 +119,7 @@ def run(argv=None):
     args = parse_args(argv)
 
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+    from multimot_track_tpu_torch.io.frame import check_frame
     from multimot_track_tpu_torch.io.yamlcfg import config_from_yaml
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
     from multimot_track_tpu_torch.viz import render
@@ -153,6 +154,8 @@ def run(argv=None):
     # overlap frame i's solve (pipeline/system.run_sequence note)
     def _prep(i):
         fd = seq.load_frame(i)
+        check_frame(fd, cfg.camera, hint="give the sequence's settings with --settings or a "
+                                         "kitti03.yaml in its directory")
         return fd, sys_.upload(fd)
 
     with ThreadPoolExecutor(1) as pool:
@@ -161,11 +164,6 @@ def run(argv=None):
             fd, handles = fut.result()
             if i + 1 < n:
                 fut = pool.submit(_prep, i + 1)
-            if fd.gray.shape != (cfg.camera.height, cfg.camera.width):
-                raise ValueError(
-                    f"frame {i} is {fd.gray.shape[1]}x{fd.gray.shape[0]} but the camera "
-                    f"config is {cfg.camera.width}x{cfg.camera.height}: give the sequence's "
-                    f"settings with --settings or a kitti03.yaml in its directory")
             r = sys_.track_rgbd(fd, uploaded=handles)
             if r is None:
                 print(f"frame {i}: initialised")

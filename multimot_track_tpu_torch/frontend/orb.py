@@ -90,7 +90,7 @@ def learn_brief_pattern(
     n_kp_per_image: int = 512,
     corr_thresh: float = 0.2,
     seed: int = 7,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
     """rBRIEF pattern learning (ORB paper sec. 4.3): candidate tests are
     scored over steered training patches; the greedy selection keeps tests
@@ -98,8 +98,13 @@ def learn_brief_pattern(
     stays under a threshold, raised by 0.05 until ``n_bits`` survive.  Port
     of the JAX package's ``learn_brief_pattern``: the patches come from this
     package's FAST pyramid, blur and steered BRIEF on ``device``; the
-    selection is the same numpy loop.  Returns the (n_bits, 2, 2) table."""
+    selection is the same numpy loop.  Returns the (n_bits, 2, 2) table.
+    Runs on the card unless ``device="cpu"``, and raises without one."""
     from multimot_track_tpu_torch.frontend import fast
+
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("learn_brief_pattern runs on the card by default and found no "
+                           "CUDA device; pass device='cpu' to run on the CPU")
 
     cand = _random_pairs(seed, n_candidates)
     bits = []

@@ -37,7 +37,7 @@ from typing import Optional
 
 import numpy as np
 
-from multimot_track_tpu_torch.io.frame import FrameData
+from multimot_track_tpu_torch.io.frame import FrameData, check_frame_size
 
 MAGIC = b"MMT1"
 
@@ -110,7 +110,8 @@ def serve_connection(sock: socket.socket, cfg=None, system=None,
     publish {"frame", "state", "Tcw", "n_inliers", "objects": [...]}.
 
     Returns the ``MultiMotSystem`` (trajectory savers, summary, checkpoint
-    all available afterwards — the ROS node offers none of that)."""
+    all available afterwards — the ROS node offers none of that).  Raises
+    ``ValueError`` for a frame whose size is not the camera config's."""
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG
     from multimot_track_tpu_torch.io.kitti import lk_flow
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
@@ -171,6 +172,9 @@ def serve_connection(sock: socket.socket, cfg=None, system=None,
         except ConnectionError:
             break
         n_seen += 1
+        check_frame_size(sys_.cfg.camera, header["frame"], gray=arrays["gray"],
+                         depth=arrays["depth"], flow=arrays.get("flow"),
+                         mask=arrays.get("sem"))
         if "flow" in arrays:
             _track_and_reply(_mk_fd(header, arrays, arrays["flow"]))
             continue

@@ -20,6 +20,7 @@ import torch
 from multimot_track_tpu_torch import state
 from multimot_track_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from multimot_track_tpu_torch.geometry import se3
+from multimot_track_tpu_torch.io.frame import check_frame
 from multimot_track_tpu_torch.ops.wire import (
     _decode_depth, _decode_flow, _decode_sem, pack_depth12, pack_flow12, pack_flow12_half,
     pack_sem4,
@@ -122,7 +123,10 @@ def pack_frame_wire(fd, cfg: PipelineConfig = DEFAULT_CONFIG):
 
 def upload_frames(frame_list: List, cfg: PipelineConfig, device):
     """The batched driver's wire: stacked (F, ...) gray8, raw disparity,
-    full-resolution flow12 and sem4 on ``device``, and the GT tables."""
+    full-resolution flow12 and sem4 on ``device``, and the GT tables.
+    Raises ``ValueError`` for a frame whose size is not the camera config's."""
+    for fd in frame_list:
+        check_frame(fd, cfg.camera)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(device)
     gray_u8 = up([np.clip(np.round(fd.gray), 0, 255).astype(np.uint8) for fd in frame_list])
     # uint16 disparity travels as int32: same values, wider torch support
@@ -215,7 +219,10 @@ def stream_chunks(frame_list: List, cfg: PipelineConfig, chunk: int, prepacked: 
     (pair ids, arrays) in order.  The arrays are the stacked wire images
     (``gray``, ``depth``, ``flow``, ``sem``) and the GT table's fields
     (``gt.<field>``); a short last chunk is padded with the last frame, and
-    its pair ids with the last pair."""
+    its pair ids with the last pair.  Raises ``ValueError`` for a frame whose
+    size is not the camera config's."""
+    for fd in frame_list:
+        check_frame(fd, cfg.camera)
     K = cfg.padding.k_obj_max
     Fn = len(frame_list)
     n_pairs = Fn - 1

@@ -39,6 +39,7 @@ import torch
 from multimot_track_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from multimot_track_tpu_torch.frontend import fast, orb
 from multimot_track_tpu_torch.geometry import camera
+from multimot_track_tpu_torch.io.frame import check_frame_size
 from multimot_track_tpu_torch.ops import matching
 from multimot_track_tpu_torch.pipeline.keyframes import Keyframe, KeyframeStore
 from multimot_track_tpu_torch.solvers import pnp
@@ -139,8 +140,10 @@ class MonoTracker:
         return uv.contiguous(), desc.contiguous(), valid
 
     def track(self, gray: np.ndarray) -> np.ndarray:
-        """Feed a frame; returns the current Tcw estimate."""
+        """Feed a frame; returns the current Tcw estimate.  Raises
+        ``ValueError`` for a frame whose size is not the camera config's."""
         cam = self.cfg.camera
+        check_frame_size(cam, self._frame, gray=gray)
         fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
         feats = self._frontend(gray)
         uv_d, desc_d, valid_d = feats

@@ -50,7 +50,7 @@ from multimot_track_tpu_torch.config import DEFAULT_CONFIG, PipelineConfig
 from multimot_track_tpu_torch.eval import metrics
 from multimot_track_tpu_torch.frontend import fast, orb
 from multimot_track_tpu_torch.geometry import camera as cam_g
-from multimot_track_tpu_torch.io.frame import FrameData
+from multimot_track_tpu_torch.io.frame import FrameData, check_frame
 from multimot_track_tpu_torch.ops import wire
 from multimot_track_tpu_torch.pipeline import frames as F
 from multimot_track_tpu_torch.pipeline import motion_seg
@@ -389,7 +389,9 @@ class MultiMotSystem:
     def upload(self, fd: FrameData):
         """Pack one frame and copy it to the device.  ``run_sequence`` calls
         this on a prefetch thread for the next frame while the current one
-        is tracked."""
+        is tracked.  Raises ``ValueError`` for a frame whose size is not the
+        camera config's."""
+        check_frame(fd, self.cfg.camera)
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in self._compact_images(fd))
 
@@ -401,9 +403,11 @@ class MultiMotSystem:
     def track_rgbd(self, fd: FrameData, uploaded=None) -> Optional[tracker.PairResult]:
         """Feed one frame; returns the (numpy) PairResult once a pair
         exists (in pipelined mode, the previous frame's).  ``uploaded``:
-        optional device tensors from :meth:`upload`."""
+        optional device tensors from :meth:`upload`.  Raises ``ValueError``
+        for a frame whose size is not the camera config's."""
         t0 = time.perf_counter()
         cfg = self.cfg
+        check_frame(fd, cfg.camera)
         gt = self._gt(fd)
         if uploaded is not None:
             gray, depth, flow, sem = uploaded

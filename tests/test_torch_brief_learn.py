@@ -27,7 +27,7 @@ def grays():
 
 def test_learned_pattern_identical(grays):
     pj = jorb.learn_brief_pattern(grays, **KW)
-    pt = torb.learn_brief_pattern(grays, **KW)
+    pt = torb.learn_brief_pattern(grays, device="cpu", **KW)
     assert pt.shape == (KW["n_bits"], 2, 2) and pt.dtype == np.float32
     np.testing.assert_array_equal(pt, pj)
 
@@ -37,7 +37,16 @@ def test_learner_writes_nothing_and_default_table_unchanged(grays, tmp_path, mon
     learned-pattern file both packages share."""
     monkeypatch.chdir(tmp_path)
     before = torb.brief_pattern().copy()
-    torb.learn_brief_pattern(grays[:1], n_bits=16, n_candidates=64, n_kp_per_image=64)
+    torb.learn_brief_pattern(grays[:1], n_bits=16, n_candidates=64, n_kp_per_image=64,
+                             device="cpu")
     assert not any(tmp_path.iterdir())
     np.testing.assert_array_equal(torb.brief_pattern(), before)
     np.testing.assert_array_equal(torb.brief_pattern(), jorb.brief_pattern())
+
+
+def test_learner_runs_on_the_card_by_default(grays, monkeypatch):
+    """As ``MultiMotSystem`` does: the default device is the card, and
+    without one the learner raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        torb.learn_brief_pattern(grays[:1], n_bits=16, n_candidates=64, n_kp_per_image=64)
