@@ -38,6 +38,7 @@ from multimot_track_tpu_torch.solvers.initializer import triangulate
 from multimot_track_tpu_torch.solvers.ransac import (
     HypothesisSampler, _count_inliers, _gn_refine_stereo,
 )
+from multimot_track_tpu_torch.utils.profiling import span
 
 # keyframes per batched descriptor-count pass: bounds the (chunk, N, N)
 # distance intermediates without changing any count
@@ -72,28 +73,31 @@ def local_map_refine(
     best-distance map copy per current keypoint, then alternate weighted
     stereo Gauss-Newton with inlier re-classification.
 
-    Returns (T_refined, n_inliers, n_matches) as tensors."""
-    y = se3.transform(T_init, Xw)
-    uv_pred = cam_g.project(y, fx, fy, cx, cy)
-    res = matching.match_projected_auto(
-        desc_map, uv_pred, valid_map & _in_view(y, uv_pred, width, height),
-        desc_cur, uv_cur, valid_cur, radius=radius, backend=backend,
-    )
-    # uniqueness: several stacked copies of one landmark may match one
-    # current keypoint; keep the best-distance copy (lowest index on ties),
-    # the JAX package's .at[idx].min scatter written out
-    M = res.idx.shape[0]
-    key = (torch.where(res.valid, res.dist, torch.full_like(res.dist, 1e6)) * (M + 1.0)
-           + torch.arange(M, dtype=torch.float32, device=Xw.device))
-    best_key = torch.full((uv_cur.shape[0],), 1e12, dtype=torch.float32,
-                          device=Xw.device).scatter_reduce(0, res.idx, key, "amin")
-    matched = res.valid & (key <= best_key[res.idx])
-    uv_obs = uv_cur[res.idx]
-    z_obs = z_cur[res.idx]
-    has_depth = matched & (z_obs > 0.25)
-    disp_obs = bf / torch.clamp(z_obs, min=0.25)
-    w_disp = has_depth.to(torch.float32) / (1.0 + (z_obs / depth_weight_z0) ** 2)
-    mf = matched.to(torch.float32)
+    Returns (T_refined, n_inliers, n_matches) as tensors.  Inside the live
+    system's ``local_map`` span the two parts are the spans ``match`` and
+    ``gn``."""
+    with span("match"):
+        y = se3.transform(T_init, Xw)
+        uv_pred = cam_g.project(y, fx, fy, cx, cy)
+        res = matching.match_projected_auto(
+            desc_map, uv_pred, valid_map & _in_view(y, uv_pred, width, height),
+            desc_cur, uv_cur, valid_cur, radius=radius, backend=backend,
+        )
+        # uniqueness: several stacked copies of one landmark may match one
+        # current keypoint; keep the best-distance copy (lowest index on
+        # ties), the JAX package's .at[idx].min scatter written out
+        M = res.idx.shape[0]
+        key = (torch.where(res.valid, res.dist, torch.full_like(res.dist, 1e6)) * (M + 1.0)
+               + torch.arange(M, dtype=torch.float32, device=Xw.device))
+        best_key = torch.full((uv_cur.shape[0],), 1e12, dtype=torch.float32,
+                              device=Xw.device).scatter_reduce(0, res.idx, key, "amin")
+        matched = res.valid & (key <= best_key[res.idx])
+        uv_obs = uv_cur[res.idx]
+        z_obs = z_cur[res.idx]
+        has_depth = matched & (z_obs > 0.25)
+        disp_obs = bf / torch.clamp(z_obs, min=0.25)
+        w_disp = has_depth.to(torch.float32) / (1.0 + (z_obs / depth_weight_z0) ** 2)
+        mf = matched.to(torch.float32)
 
     def huber_w(T):
         """IRLS Huber weights at delta = thresh over all matches."""
@@ -103,16 +107,17 @@ def local_map_refine(
         w = torch.clamp(thresh / torch.clamp(r, min=1e-6), max=1.0)
         return mf * w * (yy[..., 2] > 0)
 
-    T = T_init
-    for _ in range(rounds):
-        T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, huber_w(T), w_disp, gn_iters,
-                              fx, fy, cx, cy, bf)
-    inl, n = _count_inliers(T, Xw, uv_obs, matched, thresh, fx, fy, cx, cy)
-    for _ in range(rounds):
-        T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, inl.to(torch.float32), w_disp,
-                              gn_iters, fx, fy, cx, cy, bf)
+    with span("gn"):
+        T = T_init
+        for _ in range(rounds):
+            T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, huber_w(T), w_disp, gn_iters,
+                                  fx, fy, cx, cy, bf)
         inl, n = _count_inliers(T, Xw, uv_obs, matched, thresh, fx, fy, cx, cy)
-    return T, n, matched.sum()
+        for _ in range(rounds):
+            T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, inl.to(torch.float32), w_disp,
+                                  gn_iters, fx, fy, cx, cy, bf)
+            inl, n = _count_inliers(T, Xw, uv_obs, matched, thresh, fx, fy, cx, cy)
+        return T, n, matched.sum()
 
 
 def _fuse_scan(Tcw_new, desc_new, uv_new, valid_new, Xw_new,    # the new keyframe

@@ -60,23 +60,7 @@ from multimot_track_tpu_torch.pipeline.keyframes import (
 )
 from multimot_track_tpu_torch.pipeline.live_refine import live_refine_step
 from multimot_track_tpu_torch.solvers.ransac import HypothesisSampler, MultinomialSampler
-
-
-class _StageCtx:
-    """Stage timer: appends elapsed wall seconds to acc[name]."""
-
-    __slots__ = ("acc", "name", "t0")
-
-    def __init__(self, acc, name):
-        self.acc, self.name = acc, name
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.acc.setdefault(self.name, []).append(time.perf_counter() - self.t0)
-        return False
+from multimot_track_tpu_torch.utils.profiling import _StageCtx, span
 
 
 def _describe_frame_device(gray_u8: torch.Tensor, depth_w: torch.Tensor, bf: float,
@@ -286,8 +270,10 @@ class MultiMotSystem:
         self.n_joint_refines = 0
         self.gba_stats: List[Optional[dict]] = []  # per global BA: stats, None if rejected
         self._win: List[dict] = []      # the trailing window's device tensors
-        # per-stage wall seconds (a list per stage name)
-        self.stage_times: Dict[str, List[float]] = {}
+        # per-span wall seconds (a list per span path); "upload" is there
+        # from the start because a prefetch thread appends to it while the
+        # live thread reads the dict
+        self.stage_times: Dict[str, List[float]] = {"upload": []}
         self.keyframes = (
             KeyframeStore(capacity=be.kf_capacity, min_gap=keyframe_gap, device=self.device,
                           match_backend=match_backend)
@@ -296,15 +282,18 @@ class MultiMotSystem:
 
     # ------------------------------------------------------------------
     def _stage(self, name: str):
-        """``with self._stage("relocalize"):`` accumulates wall time."""
+        """``with self._stage("relocalize"):`` accumulates wall time in
+        ``stage_times`` under the stage's name (``profiling._StageCtx``)."""
         return _StageCtx(self.stage_times, name)
 
     def stage_report(self) -> Dict[str, Dict[str, float]]:
-        """Aggregate stage_times: total seconds, call count, mean ms."""
+        """Aggregate stage_times: total seconds, call count, mean ms, of
+        every span that ran."""
         return {
             k: {"total_s": round(float(np.sum(v)), 3), "n": len(v),
                 "mean_ms": round(1e3 * float(np.mean(v)), 2)}
             for k, v in sorted(self.stage_times.items(), key=lambda kv: -float(np.sum(kv[1])))
+            if v
         }
 
     def reset(self):
@@ -392,8 +381,9 @@ class MultiMotSystem:
         is tracked.  Raises ``ValueError`` for a frame whose size is not the
         camera config's."""
         check_frame(fd, self.cfg.camera)
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in self._compact_images(fd))
+        with _StageCtx(self.stage_times, "upload"):
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                         for a in self._compact_images(fd))
 
     def _gt(self, fd: FrameData):
         gt = F.make_gt_table(fd.pose_gt, fd.obj_ids_gt, fd.obj_poses_gt,
@@ -404,7 +394,12 @@ class MultiMotSystem:
         """Feed one frame; returns the (numpy) PairResult once a pair
         exists (in pipelined mode, the previous frame's).  ``uploaded``:
         optional device tensors from :meth:`upload`.  Raises ``ValueError``
-        for a frame whose size is not the camera config's."""
+        for a frame whose size is not the camera config's.  The call is the
+        span ``track_rgbd``, whose profiler range carries the frame index."""
+        with _StageCtx(self.stage_times, "track_rgbd", args=str(self._frame_idx)):
+            return self._track_rgbd(fd, uploaded)
+
+    def _track_rgbd(self, fd: FrameData, uploaded):
         t0 = time.perf_counter()
         cfg = self.cfg
         check_frame(fd, cfg.camera)
@@ -412,8 +407,7 @@ class MultiMotSystem:
         if uploaded is not None:
             gray, depth, flow, sem = uploaded
         else:
-            with self._stage("upload"):
-                gray, depth, flow, sem = self.upload(fd)
+            gray, depth, flow, sem = self.upload(fd)
         self._dev_images = (self._frame_idx, gray, depth)
         if self.discover_objects and self._pending is not None:
             # discovery reads the previous frame's window entry and velocity:
@@ -520,30 +514,32 @@ class MultiMotSystem:
         pend.update(use_lm=use_lm, use_win=use_win, win_after=win_after)
         if not (use_lm or use_win):
             return
-        feats, lmap = (None,) * 4, (None,) * 3
-        if use_lm:
-            feats = pend["feats"]
-            lmap = self.keyframes.local_map(n_kf=be.local_map_kfs)
-            self.n_lm_dispatched += 1
-        poses_rel_prev = torch.zeros((0, 4, 4))
-        Twc0_h = np.eye(4, dtype=np.float32)
-        grays = depth0 = flows = sems = None
-        if use_win:
-            rows_prev = [w["row"] for w in win_after[:-1]]
-            Twc0_h = np.asarray(self.map.camera_poses[rows_prev[0]], np.float32)
-            poses_rel_prev = torch.from_numpy(np.stack([
-                np.linalg.inv(self.map.camera_poses[r]).astype(np.float32) @ Twc0_h
-                for r in rows_prev]))
-            grays = torch.stack([w["gray"] for w in win_after])
-            flows = torch.stack([w["flow"] for w in win_after[:-1]])
-            sems = torch.stack([w["sem"] for w in win_after])
-            depth0 = win_after[0]["depth"]
-            self.n_win_dispatched += 1
-        pend["Twc0_h"] = Twc0_h
-        dev = lambda a: torch.as_tensor(a).to(self.device)
+        with _StageCtx(self.stage_times, "refine_prep"):
+            feats, lmap = (None,) * 4, (None,) * 3
+            if use_lm:
+                feats = pend["feats"]
+                lmap = self.keyframes.local_map(n_kf=be.local_map_kfs)
+                self.n_lm_dispatched += 1
+            poses_rel_prev = torch.zeros((0, 4, 4))
+            Twc0_h = np.eye(4, dtype=np.float32)
+            grays = depth0 = flows = sems = None
+            if use_win:
+                rows_prev = [w["row"] for w in win_after[:-1]]
+                Twc0_h = np.asarray(self.map.camera_poses[rows_prev[0]], np.float32)
+                poses_rel_prev = torch.from_numpy(np.stack([
+                    np.linalg.inv(self.map.camera_poses[r]).astype(np.float32) @ Twc0_h
+                    for r in rows_prev]))
+                grays = torch.stack([w["gray"] for w in win_after])
+                flows = torch.stack([w["flow"] for w in win_after[:-1]])
+                sems = torch.stack([w["sem"] for w in win_after])
+                depth0 = win_after[0]["depth"]
+                self.n_win_dispatched += 1
+            pend["Twc0_h"] = Twc0_h
+            dev = lambda a: torch.as_tensor(a).to(self.device)
+            poses_rel_prev_d, Twc0_d, corr_d = dev(poses_rel_prev), dev(Twc0_h), dev(pend["corr"])
         pend["refine"] = live_refine_step(
-            pend["result"], *feats, *lmap, dev(poses_rel_prev), dev(Twc0_h),
-            grays, depth0, flows, sems, dev(pend["corr"]), self.cfg, use_lm, use_win,
+            pend["result"], *feats, *lmap, poses_rel_prev_d, Twc0_d,
+            grays, depth0, flows, sems, corr_d, self.cfg, use_lm, use_win,
             self.min_inliers, match_backend=self.match_backend, stage=self._stage,
         )
 
@@ -993,23 +989,25 @@ class MultiMotSystem:
 
         if len(self._win) < self.cfg.backend.window_size:
             return None
-        rows, poses_rel, Tcw0_abs = self._window_poses()
-        # a LOST gap breaks the pair <-> stored-flow alignment
-        if any(rows[i + 1] - rows[i] != 1 for i in range(len(rows) - 1)):
-            return None
-        H_init, H_valid, used = joint_motion_init(self.map.obj_records, rows, poses_rel,
-                                                  self.cfg.padding.k_obj_max)
-        if not used:
-            return None     # an ego-only window is the per-frame refiner's job
-        self.n_joint_refines += 1
-        dev = lambda a: torch.from_numpy(a).to(self.device)
-        poses_out, motions_out, _ = window_refine.refine_joint_window(
-            dev(poses_rel), dev(H_init), dev(H_valid), *self._window_tensors(), self.cfg)
+        with span("problem"):
+            rows, poses_rel, Tcw0_abs = self._window_poses()
+            # a LOST gap breaks the pair <-> stored-flow alignment
+            if any(rows[i + 1] - rows[i] != 1 for i in range(len(rows) - 1)):
+                return None
+            H_init, H_valid, used = joint_motion_init(self.map.obj_records, rows, poses_rel,
+                                                      self.cfg.padding.k_obj_max)
+            if not used:
+                return None     # an ego-only window is the per-frame refiner's job
+            self.n_joint_refines += 1
+            dev = lambda a: torch.from_numpy(a).to(self.device)
+            inputs = (dev(poses_rel), dev(H_init), dev(H_valid), *self._window_tensors())
+        poses_out, motions_out, _ = window_refine.refine_joint_window(*inputs, self.cfg)
         jctx = dict(rows=rows, poses_rel=poses_rel, Tcw0_abs=Tcw0_abs, used=used)
         if dispatch_only:
             return (poses_out, motions_out), jctx
-        return self._joint_window_apply(jctx, poses_out.cpu().numpy(),
-                                        motions_out.cpu().numpy())
+        with span("fetch"):
+            return self._joint_window_apply(jctx, poses_out.cpu().numpy(),
+                                            motions_out.cpu().numpy())
 
     def _joint_window_apply(self, jctx, poses_out: np.ndarray, motions_out: np.ndarray,
                             commit_poses: bool = True) -> Optional[np.ndarray]:

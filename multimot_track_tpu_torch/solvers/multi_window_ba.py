@@ -13,6 +13,11 @@ unknowns).  ``J`` is the forward-mode Jacobian (``torch.func.jacfwd``) of
 the unweighted residuals; the Huber IRLS weights are computed from the
 primal residuals once per step and enter as constant row scales, which is
 what the JAX package's ``stop_gradient`` on the weight amounts to.
+
+Inside the live system's ``joint_ba`` span, ``refine_window``'s parts are
+the spans ``problem`` (the residual model), ``jacobian`` (each step's
+residuals, row weights and Jacobian) and ``solve`` (each step's normal
+equations and solve, and the final residuals).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from multimot_track_tpu_torch.geometry import camera, se3
+from multimot_track_tpu_torch.utils.profiling import span
 
 
 class MultiWindowParams(NamedTuple):
@@ -153,20 +159,24 @@ def refine_window(
     fx: float, fy: float, cx: float, cy: float,
     params: MultiWindowParams = MultiWindowParams(),
 ) -> MultiWindowResult:
-    pb = window_problem(poses_init, motions_init, motions_valid, st_uv, st_flow, st_depth,
-                        st_valid, ob_uv, ob_flow, ob_depth, ob_valid, fx, fy, cx, cy, params)
-    dev, f32 = poses_init.device, torch.float32
-    lam_eye = params.lam * torch.eye(pb.D, dtype=f32, device=dev)
-    jac = torch.func.jacfwd(pb.raw_residuals)
-    v = torch.zeros(pb.D, dtype=f32, device=dev)
+    with span("problem"):
+        pb = window_problem(poses_init, motions_init, motions_valid, st_uv, st_flow, st_depth,
+                            st_valid, ob_uv, ob_flow, ob_depth, ob_valid, fx, fy, cx, cy, params)
+        dev, f32 = poses_init.device, torch.float32
+        lam_eye = params.lam * torch.eye(pb.D, dtype=f32, device=dev)
+        jac = torch.func.jacfwd(pb.raw_residuals)
+        v = torch.zeros(pb.D, dtype=f32, device=dev)
     for _ in range(params.iters):
+        with span("jacobian"):
+            r_raw = pb.raw_residuals(v)
+            s = pb.row_scale(r_raw)
+            J = s[:, None] * jac(v)
+            r = s * r_raw
+        with span("solve"):
+            # solve_ex: no host sync on the info flag
+            v = v + torch.linalg.solve_ex(J.T @ J + lam_eye, -(J.T @ r)[:, None])[0][:, 0]
+    with span("solve"):
         r_raw = pb.raw_residuals(v)
-        s = pb.row_scale(r_raw)
-        J = s[:, None] * jac(v)
-        r = s * r_raw
-        # solve_ex: no host sync on the info flag
-        v = v + torch.linalg.solve_ex(J.T @ J + lam_eye, -(J.T @ r)[:, None])[0][:, 0]
-    r_raw = pb.raw_residuals(v)
-    r_fin = pb.row_scale(r_raw) * r_raw
-    T, Hm, _ = pb.unpack(v)
-    return MultiWindowResult(poses=T, motions=Hm, chi2=(r_fin * r_fin).sum())
+        r_fin = pb.row_scale(r_raw) * r_raw
+        T, Hm, _ = pb.unpack(v)
+        return MultiWindowResult(poses=T, motions=Hm, chi2=(r_fin * r_fin).sum())

@@ -1,4 +1,5 @@
-"""Observability: per-stage timing and the torch profiler's hooks.
+"""Observability: per-stage timing, the live system's spans and the torch
+profiler's hooks.
 
 Port of ``multimot_track_tpu.utils.profiling``.  ``StageTimer`` keeps the
 wall seconds of named stages; on a stage's exit it waits for the CUDA
@@ -6,17 +7,75 @@ device of the stage's result, so the device's time is counted in the stage
 that queued it.  ``trace`` records a ``torch.profiler`` trace and writes it
 as a Chrome trace (the JAX package's ``xla_trace``), and ``annotate``
 names a region in that trace.
+
+The live system's spans (``_StageCtx``, ``span``) record host seconds
+without a synchronise, so device work lands in the span that queued it only
+where that span also waits for it.  A recorder is a ``{path: [seconds,
+...]}`` dict (``MultiMotSystem.stage_times``).  A span opened on the
+recorder (``_StageCtx``: the system's stages and its ``track_rgbd`` root)
+is recorded under its own name; ``span(name)``, for code that has no
+recorder at hand, opens one inside the innermost open span of the running
+thread's context, recorded under that span's path plus its name
+(``"dispatch_pair/ego"``).  The innermost open span is kept in a
+``ContextVar``; outside every span, ``span`` is one lookup and records
+nothing.  While a profiler runs on the thread, each span also opens the
+profiler range ``"mmt:" + path``, which puts the spans on the device
+trace's clock; with none running, no range is opened.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import time
 from collections import defaultdict
 from typing import Dict, List
 
 import torch
+from torch.autograd import _profiler_enabled
+
+SPAN_PREFIX = "mmt:"            # prefix of the spans' profiler ranges
+# (recorder, path) of the innermost open span in this thread's context
+_OPEN: contextvars.ContextVar = contextvars.ContextVar("mmt_open_span", default=None)
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _StageCtx:
+    """One span: appends its elapsed wall seconds to ``acc[path]``;
+    ``args`` goes to its profiler range."""
+
+    __slots__ = ("acc", "path", "args", "t0", "token", "range")
+
+    def __init__(self, acc: Dict[str, List[float]], path: str, args: str = None):
+        self.acc, self.path, self.args = acc, path, args
+
+    def __enter__(self):
+        self.token = _OPEN.set((self.acc, self.path))
+        self.range = None
+        if _profiler_enabled():
+            self.range = torch.profiler.record_function(SPAN_PREFIX + self.path, self.args)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        self.acc.setdefault(self.path, []).append(dt)
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _OPEN.reset(self.token)
+        return False
+
+
+def span(name: str):
+    """``with span("ego"):`` a span inside the innermost open span of this
+    thread's context, in its recorder; outside every span, a context that
+    records nothing."""
+    outer = _OPEN.get()
+    if outer is None:
+        return _NO_SPAN
+    return _StageCtx(outer[0], outer[1] + "/" + name)
 
 
 def _cuda_devices(tree, out: set) -> set:

@@ -12,10 +12,11 @@ Renders make_junction_frames(N) at the KITTI camera, runs
     device time.  The Chrome trace goes to ``--out``.
 Then the same profile for the live system (``MultiMotSystem``, synchronous,
 at DEFAULT_CONFIG with the trailing-window and joint window BA on and loop
-closing off, after a warm-up run), with its per-stage host times and the
-device time of the two window solvers (``torch.profiler.record_function``
-ranges around ``refine_trailing_window`` and ``refine_joint_window``).
-Prints the card's name and power limit first.  Needs a CUDA device.
+closing off, after a warm-up run), with its per-stage host times and, per
+span of the program (its ``mmt:`` profiler ranges, ``portbench/spans.py``),
+the launches, syncs and copies it made and its device, host, self and
+idle ms a frame.  Prints the card's name and power limit first.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -82,22 +83,9 @@ def main() -> int:
     _report(prof, wall, os.path.join(args.out, "trace.json"), "profiled batched run")
 
     # ---- the live system: warm-up, then one profiled synchronous run ----
-    from torch.profiler import record_function
-
-    from multimot_track_tpu_torch.pipeline import window_refine
     from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
-
-    def ranged(fn, name):
-        def run(*a, **kw):
-            with record_function(name):
-                return fn(*a, **kw)
-        return run
-
-    # the live path calls both through the module, so the ranges cover it
-    window_refine.refine_trailing_window = ranged(window_refine.refine_trailing_window,
-                                                  "trailing_window_ba")
-    window_refine.refine_joint_window = ranged(window_refine.refine_joint_window,
-                                               "joint_window_ba")
+    from multimot_track_tpu_torch.utils.profiling import SPAN_PREFIX
+    from portbench import spans
 
     def live_run():
         s = MultiMotSystem(cfg, seed=0, enable_loop_closing=False, device=dev)
@@ -111,20 +99,20 @@ def main() -> int:
         t0 = time.perf_counter()
         s = live_run()
         wall = (time.perf_counter() - t0) * 1e3
-    ranges = ("trailing_window_ba", "joint_window_ba")
-    busy = _report(prof, wall, os.path.join(args.out, "trace_live.json"),
-                   f"profiled live run ({len(frames)} frames)", ranges)
-    for name in ranges:
-        # the host-side ranges; each one's device time sums the kernels of
-        # the ops inside it
-        rs = [e for e in prof.events()
-              if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
-        dev_ms = sum(e.device_time_total if hasattr(e, "device_time_total")
-                     else e.cuda_time_total for e in rs) / 1e3
-        host_ms = sum(e.cpu_time_total for e in rs) / 1e3
-        print(f"{name}: {len(rs)} calls, device {dev_ms:.1f} ms "
-              f"({100 * dev_ms / busy:.1f} % of device busy), host {host_ms:.1f} ms "
-              f"({100 * host_ms / wall:.1f} % of the wall clock)", flush=True)
+    events = prof.profiler.kineto_results.events()
+    ranges = {e.name() for e in events if e.name().startswith(SPAN_PREFIX)}
+    _report(prof, wall, os.path.join(args.out, "trace_live.json"),
+            f"profiled live run ({len(frames)} frames)", ranges)
+    by = spans.from_kineto(events)
+    print(f"program spans a frame ({spans.named_share(by):.4f} of the launches under one):",
+          flush=True)
+    print(f"{'span':28s} {'calls':>6s} {'launches':>9s} {'with ch.':>9s} {'syncs':>6s} "
+          f"{'copies':>6s} {'device':>8s} {'host':>8s} {'self':>8s} {'idle':>8s}", flush=True)
+    for path, d in sorted(spans.per_frame(by, len(frames)).items()):
+        print(f"{path:28s} {d.get('calls', 0):6.2f} {d['launches']:9.1f} "
+              f"{d.get('launches_all', d['launches']):9.1f} {d['syncs']:6.2f} "
+              f"{d['copies']:6.2f} {d['device_ms']:8.3f} {d.get('host_ms', 0):8.2f} "
+              f"{d.get('self_ms', 0):8.2f} {d['idle_ms']:8.2f}", flush=True)
     print(f"live stages (host clock, profiled): {s.stage_report()}", flush=True)
     return 0
 
