@@ -5,11 +5,11 @@
 
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build kernels K1 (csrc/flow_ba_lm.cu) and K2 (csrc/match_projected.cu)
-     with nvcc and the host sources (native/graphcut.cc, the exact graph-cut
+  2. build kernels K1 (csrc/flow_ba_lm.cu), K2 (csrc/match_projected.cu) and
+     K3 (csrc/window_ba_lm.cu) with nvcc and the host sources (native/graphcut.cc, the exact graph-cut
      labeler; native/png_unfilter.cc, the PNG unfilter; native/loader.cc,
      the threaded KITTI loader with its own inflate) with the host
-     compiler, all five started together; print the build times and the
+     compiler, all six started together; print the build times and the
      compilers' register / shared-memory reports;
   3. K1 against its plain torch version on the card at the five path
      shapes (live camera 1 x 2048 and batched camera 11 x 2048 with point
@@ -59,10 +59,10 @@ Phases, in order; any failure exits non-zero before the result lines:
      frame (host clock and CUDA events around the loop), stage means (the
      loop ladder's among them), peak memory, mean camera t-RPE, ATE, refined
      object t-RPE, keyframes, fused / culled points, local-map and window
-     refinements dispatched and accepted, joint window refines, K1 and K2
-     launches (K2 must equal the local-map refinements plus the fuse scans,
-     and be > 0; a window refinement per frame from the first full window,
-     at least one accepted; at least one joint refine in sync; no loop
+     refinements dispatched and accepted, joint window refines, K1, K2 and
+     K3 launches (K2 must equal the local-map refinements plus the fuse
+     scans, and be > 0; a window refinement per frame from the first full
+     window, each one K3 launch, at least one accepted; at least one joint refine in sync; no loop
      event: the junction never revisits); then the synchronous run once
      more with the plain matcher, whose trajectory must agree with the
      kernel run to 1e-4, and once with both windows off;
@@ -71,7 +71,15 @@ Phases, in order; any failure exits non-zero before the result lines:
      and object measurements, on the card and on the CPU (poses and
      motions within 1e-3, live tracks within 2), ms per call of both; then
      ``build_window_tracks`` on frames 0-4 through K2 and through the plain
-     matcher (identical tracks, 4 K2 launches);
+     matcher (identical tracks, 4 K2 launches); then K3 on the card's own
+     trailing-window inputs (F = 5, N = 2048, odometry prior on) against
+     ``solve_window_ba`` on the same card: max |d| of the poses (atol
+     1e-4), inverse depths and chi2 (rtol 1e-3), the device ms of one
+     launch (profiler kernel time, and CUDA events over back-to-back
+     calls after a warm-up), the wrapper's host ms a call, the plain
+     version's ms, the flop / byte bound and the share of it, and the
+     launches and device kernels a call (1 each); ``--k3-only`` runs
+     phases 1, 2 and this part alone, on a seeded window of that shape;
   8. the live loop ladder: a shuttle at the KITTI camera with
      ``default_movers()`` (forward 0.3 m per frame over SHUTTLE_N positions,
      then back over the same path) through ``MultiMotSystem`` at
@@ -293,7 +301,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("flow_ba_lm", "match_projected")
+KERNELS = ("flow_ba_lm", "match_projected", "window_ba_lm")
 # native/<name>.cc, built with the host compiler: the exact graph-cut
 # labeler, the PNG unfilter and the threaded KITTI loader
 NATIVE = ("graphcut", "png_unfilter", "loader")
@@ -1021,6 +1029,7 @@ def phase_live(dev, frames):
 
     from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
     from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+    from multimot_track_tpu_torch.solvers.window_ba_cuda import solve_window_ba_cuda
 
     n = len(frames)
     cfg = live_config()
@@ -1033,9 +1042,11 @@ def phase_live(dev, frames):
     for mode, kw in (("sync", {}), ("pipelined", dict(pipelined=True))):
         solve_flow_ba_cuda.launches = 0
         match_projected_cuda.launches = 0
+        solve_window_ba_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         s, res, host_s, ev_ms = run_live(dev, frames, cfg, **kw)
         k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
+        k3 = solve_window_ba_cuda.launches
         peak = torch.cuda.max_memory_allocated(dev)
         kf = s.keyframes
         summ = s.summary()
@@ -1056,7 +1067,8 @@ def phase_live(dev, frames):
             f"{n_win}), {len(s.win_accepted_frames)} accepted (frames "
             f"{s.win_accepted_frames}); joint window refines {s.n_joint_refines}")
         log(f"[live {mode}] launches: K1 {k1}, K2 {k2} "
-            f"(expect {s.n_lm_dispatched} + {kf.n_fuse_scans})")
+            f"(expect {s.n_lm_dispatched} + {kf.n_fuse_scans}), K3 {k3} "
+            f"(expect {s.n_win_dispatched})")
         log(f"[live {mode}] loop events {s.map.loop_events}; loop_ladder stage mean "
             f"{stages.get('loop_ladder', {}).get('mean_ms')} ms "
             f"({stages.get('loop_ladder', {}).get('n', 0)} calls)")
@@ -1077,14 +1089,15 @@ def phase_live(dev, frames):
             raise SystemExit(f"live {mode}: tracking accuracy out of bounds")
         # an accepted window had at least min_window_tracks live tracks
         if s.n_win_dispatched != n_win or not s.win_accepted_frames \
-                or "window_refine" not in stages:
+                or "window_refine" not in stages or k3 != s.n_win_dispatched:
             raise SystemExit(f"live {mode}: window refinements {s.n_win_dispatched} "
-                             f"dispatched (expect {n_win}), {s.win_accepted_frames} accepted")
+                             f"dispatched (expect {n_win}), {s.win_accepted_frames} accepted, "
+                             f"K3 launched {k3} times")
         if mode == "sync" and not (s.lm_accepted_frames and s.n_joint_refines >= 1
                                    and "joint_ba" in stages):
             raise SystemExit(f"live sync: local-map accepts {s.lm_accepted_frames}, "
                              f"joint window refines {s.n_joint_refines}")
-        runs[mode] = dict(system=s, k1=k1, k2=k2, ms_per_frame=1e3 * host_s / n)
+        runs[mode] = dict(system=s, k1=k1, k2=k2, k3=k3, ms_per_frame=1e3 * host_s / n)
 
     s_p, _, host_p, _ = run_live(dev, frames, cfg, match_backend="torch")
     s_k = runs["sync"]["system"]
@@ -1105,7 +1118,8 @@ def phase_live(dev, frames):
         f"t-RPE {summ['obj_t_rpe_refined_mean']}; stages {json.dumps(s_o.stage_report())}")
     if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
         raise SystemExit("live, windows off: tracking accuracy out of bounds")
-    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"], system=s_k,
+    return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"],
+                k3_launches=runs["sync"]["k3"], system=s_k,
                 ms_per_frame=runs["sync"]["ms_per_frame"])
 
 
@@ -1137,6 +1151,13 @@ def phase_window(dev, frames, s):
     from multimot_track_tpu_torch.pipeline.system import joint_motion_init
 
     cfg = s.cfg
+    k3_inputs = []
+    auto = window_refine.solve_window_ba_auto
+
+    def recording(*args, **kw):          # the card's trailing-window solver inputs, once
+        if not k3_inputs and args[1].is_cuda:
+            k3_inputs.append((args[:4], args[4:8], kw["params"]))
+        return auto(*args, **kw)
     Wn = cfg.backend.window_size
     win = frames[:Wn]
     rows = list(range(Wn))
@@ -1155,7 +1176,11 @@ def phase_window(dev, frames, s):
         P, H, V = up(poses_rel), up(H_init), up(H_valid)
         trail = lambda: window_refine.refine_trailing_window(P, g, dp[0], fl, sm, cfg)
         joint = lambda: window_refine.refine_joint_window(P, H, V, g, dp, fl, sm, cfg)
-        P_t, n_live = trail()
+        window_refine.solve_window_ba_auto = recording
+        try:
+            P_t, n_live = trail()
+        finally:
+            window_refine.solve_window_ba_auto = auto
         P_j, M_j, _ = joint()
         reps = 5 if where == "cuda" else 1
         out[where] = dict(P_t=P_t.cpu().numpy(), n_live=int(n_live), P_j=P_j.cpu().numpy(),
@@ -1198,6 +1223,104 @@ def phase_window(dev, frames, s):
         f"| K2 {ms_k:.2f} ms/call, plain {ms_p:.2f} ms/call")
     if not same or launches != Wn - 1:
         raise SystemExit("window tracks: K2 and the plain matcher disagree")
+    (args, cam, params), = k3_inputs
+    return phase_window_kernel(dev, args, cam, params, "junction frames 0-4")
+
+
+# K3's bound, counted from the algorithm (csrc/window_ba_lm.cu's note): float32
+# operations per visible observation per LM step (pass 1: transform,
+# residual, Huber weight, pose and inverse-depth Jacobians, the 21 + 6 pose
+# products, 6 Schur columns and 2 inverse-depth sums; pass 2: the
+# candidate's transform, residual and robust cost), per valid track per step
+# besides its 2 E Schur products and 2 D of back-substitution, and once per
+# observation (the initial objective)
+K3_FLOPS_PER_OBS_STEP = 264
+K3_FLOPS_PER_TRACK_STEP = 20
+K3_FLOPS_PER_OBS_ONCE = 40
+K3_POSE_ATOL, K3_RTOL = 1e-4, 1e-3     # tests/test_torch_window_kernel.py
+
+
+def k3_bound_us(args, iters):
+    """The least time the card could take for one window solve: the larger
+    of the flops ``iters`` LM steps need on these inputs' visible
+    observations and valid tracks, over the fp32 peak, and each input read
+    once and each output written once, over the memory rate.  Returns (us,
+    'bytes' or 'operations', flop us, byte us)."""
+    poses, uv, alive, depth0 = args
+    F, N = uv.shape[:2]
+    D = 6 * (F - 1)
+    E = (D + 1) * (D + 2) // 2
+    valid = alive[0] & (depth0 > 0)
+    n_valid, n_vis = int(valid.sum()), int((alive[1:] & valid).sum())
+    per_step = (K3_FLOPS_PER_OBS_STEP * n_vis
+                + (K3_FLOPS_PER_TRACK_STEP + 2 * E + 2 * D) * n_valid
+                + D ** 3 / 3 + 3 * D * D)                 # Cholesky, two solves, assembly
+    flops = iters * per_step + K3_FLOPS_PER_OBS_ONCE * n_vis
+    byts = sum(x.numel() * x.element_size() for x in args) + 4 * (16 * F + N + 1)
+    t_ops, t_bytes = flops / H100_FP32_FLOPS, byts / H100_BYTES_PER_S
+    return (1e6 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e6 * t_ops, 1e6 * t_bytes)
+
+
+def phase_window_kernel(dev, args, cam, params, label):
+    """K3 against ``solve_window_ba`` on the card, on one window's solver
+    inputs and intrinsics ``cam`` (fx, fy, cx, cy): agreement, the device ms of a launch (profiler and CUDA
+    events), the wrapper's host ms, the plain version's ms, the bound, and
+    launches and device kernels a call."""
+    import torch
+
+    from multimot_track_tpu_torch.solvers import window_ba_cuda
+    from multimot_track_tpu_torch.solvers.window_ba import solve_window_ba
+    from multimot_track_tpu_torch.solvers.window_ba_cuda import solve_window_ba_cuda
+
+    args = tuple(a.to(dev).contiguous() for a in args)
+    F, N = args[1].shape[:2]
+    run_k = lambda: solve_window_ba_cuda(*args, *cam, params=params)
+    run_p = lambda: solve_window_ba(*args, *cam, params=params)
+    before = solve_window_ba_cuda.launches
+    out_k = run_k()
+    torch.cuda.synchronize()
+    launches = solve_window_ba_cuda.launches - before
+    out_p = run_p()
+    again = run_k()
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(x, y) for x, y in zip(out_k, again))
+    dP = float((out_k.poses - out_p.poses).abs().max())
+    drho = float(((out_k.inv_depth - out_p.inv_depth).abs()
+                  / out_p.inv_depth.abs().clamp(min=1e-12)).max())
+    dchi2 = abs(float(out_k.chi2) - float(out_p.chi2)) / max(abs(float(out_p.chi2)), 1e-12)
+    finite = bool(torch.isfinite(out_k.poses).all() and torch.isfinite(out_k.inv_depth).all())
+    ms_events = time_ms(run_k, rounds=5, reps=20)
+    ms_wrapper = host_ms(run_k, 20)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        run_k()
+    ms_enqueue = 1e3 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    ms_plain = time_ms(run_p, rounds=3, reps=2)
+    split, sessions = one_kernel_split(run_k)
+    n_kern = sum(n for n, _ in split.values())
+    us_dev = per_call_us(split) / n_kern if n_kern else float("nan")   # one launch
+    bound_us, bound_by, ops_us, bytes_us = k3_bound_us(args, params.iters)
+    moved = float((out_k.poses - args[0]).abs().max())
+    log(f"[K3] {label} (F = {F}, N = {N}, {params.iters} steps, odometry prior "
+        f"{params.odo_prior_weight}): cluster {window_ba_cuda.cluster_plan(N)} CTAs; max|dPose| "
+        f"{dP:.3e} (atol {K3_POSE_ATOL}), max rel d inv_depth {drho:.3e}, rel d chi2 "
+        f"{dchi2:.3e} (rtol {K3_RTOL}); moved the poses by {moved:.3e}; two launches "
+        f"identical: {repeats}")
+    log(f"[K3] {label}: device {us_dev / 1e3:.4f} ms (profiler kernel time), {ms_events:.4f} "
+        f"ms (CUDA events, back-to-back calls), wrapper {ms_wrapper:.4f} ms a call (host, "
+        f"synchronised) / {ms_enqueue:.4f} ms enqueue, plain {ms_plain:.3f} ms | bound "
+        f"{bound_us:.2f} us by {bound_by} (flops {ops_us:.3f} us, bytes {bytes_us:.3f} us), "
+        f"{100 * bound_us / us_dev:.2f} % of bound | {launches} launch(es) and {n_kern} "
+        f"device kernel(s) a call ({sessions} profiler session(s))")
+    if not (finite and repeats and launches == 1 and n_kern == 1 and dP <= K3_POSE_ATOL
+            and drho <= K3_RTOL and dchi2 <= K3_RTOL):
+        raise SystemExit(f"K3 disagrees with its plain version on {label}")
+    return dict(window=label, F=F, N=N, max_abs_err=dP, rho_rel_err=drho, chi2_rel_err=dchi2,
+                ms=us_dev / 1e3, events_ms=ms_events, wrapper_ms=ms_wrapper,
+                enqueue_ms=ms_enqueue, plain_ms=ms_plain, bound_ms=bound_us / 1e3,
+                bound_by=bound_by, kernels_per_call=n_kern)
 
 
 SHUTTLE_N = 8               # forward positions of the loop scene: 2 * 8 - 1 = 15 frames
@@ -3577,6 +3700,18 @@ def main(argv) -> int:
     if "--k2-only" in argv:                 # phases 1, 2 and 5 alone, no result lines
         phase_match_kernel(dev)
         return 0
+    if "--k3-only" in argv:                 # phases 1, 2 and 7's K3 part alone, no result lines
+        from multimot_track_tpu_torch.config import DEFAULT_CONFIG
+        from multimot_track_tpu_torch.solvers.window_ba import WindowBAParams
+
+        be = DEFAULT_CONFIG.backend
+        params = WindowBAParams(iters=be.window_ba_iters, odo_prior_weight=be.odo_prior_weight)
+        sys.path.insert(0, os.path.join(REPO, "tests"))
+        from torch_window_problem import cams, make_window
+
+        args = make_window(F=be.window_size, N=be.n_window_tracks, seed=0)
+        log(json.dumps({"k3": phase_window_kernel(dev, args, cams(), params, "seeded window")}))
+        return 0
     if "--mono-only" in argv:               # phases 1, 2 and 12 alone, no result lines
         log(json.dumps({"mono": phase_mono(dev, log_dir)}, default=float))
         return 0
@@ -3613,7 +3748,7 @@ def main(argv) -> int:
     lap("phase 4")
     k2 = phase_match_kernel(dev)
     live = phase_live(dev, frames)
-    phase_window(dev, frames, live["system"])
+    k3 = phase_window(dev, frames, live["system"])
     lap("phases 5-7")
     t0 = time.perf_counter()
     shuttle = shuttle_frames()
@@ -3681,6 +3816,18 @@ def main(argv) -> int:
         "bound_ms": lm["bound_ms"],
         "bound_by": lm["bound_by"],
         "library_ms": None,        # no single PyTorch call gives a gated top-2 Hamming match
+    }, {
+        "name": "window_ba_lm",
+        "route": "cuda",
+        "source": "multimot_track_tpu_torch/csrc/window_ba_lm.cu",
+        "replaces": None,          # the JAX solve_window_ba is an XLA while_loop, no kernel
+        "launches": live["k3_launches"],
+        "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,        # no single PyTorch call runs a window LM
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

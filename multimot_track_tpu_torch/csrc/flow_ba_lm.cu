@@ -79,6 +79,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "se3.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -312,37 +314,6 @@ __device__ __forceinline__ void chol_solve6(const float* H, const float* g, floa
     for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
     x[i] = s * inv[i];
   }
-}
-
-// se(3) exp of (omega, upsilon) with geometry/se3.exp_se3's eps terms.
-__device__ __forceinline__ void exp_se3(const float* xi, float* R, float* t) {
-  const float EPS = 1e-8f;
-  const float w0 = xi[0], w1 = xi[1], w2 = xi[2];
-  const float th2 = w0 * w0 + w1 * w1 + w2 * w2;
-  const float th = sqrtf(th2 + EPS * EPS);
-  const bool small = th2 < 1e-10f;
-  float sn, cs;
-  sincosf(th, &sn, &cs);
-  const float a = small ? 1.f - th2 / 6.f : sn / th;
-  const float b = small ? 0.5f - th2 / 24.f : (1.f - cs) / (th2 + EPS * EPS);
-  const float c = small ? 1.f / 6.f - th2 / 120.f : (th - sn) / (th2 * th + EPS);
-  const float K[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
-  float K2[9];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      K2[i * 3 + j] = K[i * 3] * K[j] + K[i * 3 + 1] * K[3 + j] + K[i * 3 + 2] * K[6 + j];
-  float V[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const float e = (k % 4 == 0) ? 1.f : 0.f;
-    R[k] = e + a * K[k] + b * K2[k];
-    V[k] = e + b * K[k] + c * K2[k];
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    t[i] = V[i * 3] * xi[3] + V[i * 3 + 1] * xi[4] + V[i * 3 + 2] * xi[5];
 }
 
 // Points per CTA held in shared memory for a P-point-per-thread instantiation.

@@ -6,8 +6,8 @@ uploads, so a refinement moves no image data between host and device:
 
 * ``refine_trailing_window`` (every frame): FAST on window frame 0, tracks
   chained through the stored flow fields and verified by ZNCC against the
-  frame-0 patch, then the inverse-depth window BA (``solvers.window_ba``)
-  from the online poses;
+  frame-0 patch, then the inverse-depth window BA (``solvers.window_ba``;
+  on the card one launch of kernel K3) from the online poses;
 * ``refine_joint_window`` (keyframe cadence): per-pair static grid points
   and per-slot object points re-derived from the window's images, then the
   joint ego + object refinement (``solvers.multi_window_ba``).
@@ -26,7 +26,7 @@ from multimot_track_tpu_torch.frontend import fast, sampling, tracks
 from multimot_track_tpu_torch.geometry import camera
 from multimot_track_tpu_torch.ops import photometric, wire
 from multimot_track_tpu_torch.solvers import multi_window_ba
-from multimot_track_tpu_torch.solvers.window_ba import WindowBAParams, solve_window_ba
+from multimot_track_tpu_torch.solvers.window_ba import WindowBAParams, solve_window_ba_auto
 from multimot_track_tpu_torch.utils.profiling import span
 
 
@@ -128,7 +128,7 @@ def refine_trailing_window(
         alive = torch.cat([tr.alive[:1], alive_v], 0)
 
     with span("lm"):
-        res = solve_window_ba(
+        res = solve_window_ba_auto(
             poses_rel, tr.uv, alive, z0, cam.fx, cam.fy, cam.cx, cam.cy,
             params=WindowBAParams(iters=be.window_ba_iters,
                                   odo_prior_weight=be.odo_prior_weight),

@@ -12,7 +12,13 @@ Residual per (frame f >= 1, track i):
 
 The Levenberg-Marquardt loop runs exactly ``iters`` steps (the JAX
 ``while_loop`` has no early exit) with the Nielsen lambda schedule, and
-stays on the device: no step reads a value back to the host.
+stays on the device: no step reads a value back to the host.  It computes
+in the inputs' floating type (float32 on the live path; float64 gives the
+tests a reference for the float32 solvers).
+
+``solve_window_ba_auto`` dispatches: the CUDA kernel K3
+(solvers/window_ba_cuda.py, one launch a window) for CUDA tensors, this
+plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ def solve_window_ba(
 ) -> WindowBAResult:
     p = params
     F = uv.shape[0]
-    dev, f32 = uv.device, torch.float32
+    dev, dt = uv.device, uv.dtype             # float32 on the live path
     uv0 = uv[0]
     valid0 = alive[0] & (depth0 > 0)
     rho0 = torch.where(valid0, 1.0 / torch.clamp(depth0, min=1e-3), torch.ones_like(depth0))
@@ -58,14 +64,14 @@ def solve_window_ba(
     obs = uv[1:]                                     # (F-1, N, 2)
     vis = alive[1:] & valid0[None, :]                # (F-1, N)
     dirs = camera.backproject(uv0, torch.ones_like(depth0), fx, fy, cx, cy)   # (N, 3)
-    eye6 = torch.eye(6, dtype=f32, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
 
     w_odo = p.odo_prior_weight
     Z_odo = poses_init[1:] @ se3.inverse(poses_init[:-1])     # (F-1, 4, 4)
     Ad_Z = se3.adjoint(Z_odo)                                 # (F-1, 6, 6)
 
     def odo_residuals(T_stack):
-        T_prev = torch.cat([torch.eye(4, dtype=f32, device=dev)[None], T_stack[:-1]], 0)
+        T_prev = torch.cat([torch.eye(4, dtype=dt, device=dev)[None], T_stack[:-1]], 0)
         return se3.log_se3(T_stack @ se3.inverse(T_prev) @ se3.inverse(Z_odo))   # (F-1, 6)
 
     def points(T_stack, rho):
@@ -87,7 +93,7 @@ def solve_window_ba(
             torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
             torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
         ], -2)                                                         # (F-1, N, 2, 3)
-        eye3 = torch.eye(3, dtype=f32, device=dev).expand(y.shape[:-1] + (3, 3))
+        eye3 = torch.eye(3, dtype=dt, device=dev).expand(y.shape[:-1] + (3, 3))
         dy_dxi = torch.cat([-se3.hat(y), eye3], -1)                    # (F-1, N, 3, 6)
         Jp = -(dpi @ dy_dxi)                                           # (F-1, N, 2, 6)
         dy_drho = -torch.einsum("fij,nj->fni", T_stack[:, :3, :3], X) / rho[None, :, None]
@@ -118,13 +124,13 @@ def solve_window_ba(
     Fv = objective(T_stack, rho)
     near = torch.where(valid0, depth0, torch.full_like(depth0, 1e9)).min()
     lam = p.tau * torch.clamp((fx / torch.clamp(near, min=1.0)) ** 2, min=1.0)
-    nu = torch.full((), 2.0, dtype=f32, device=dev)
+    nu = torch.full((), 2.0, dtype=dt, device=dev)
     D = 6 * (F - 1)
     idx = torch.arange(F - 1, device=dev)
     for _ in range(p.iters):
         H_ff, g_f, h_r, g_r, B = residual_blocks(T_stack, rho, lam)
         # the reduced dense system over the F-1 poses
-        H = torch.zeros((F - 1, F - 1, 6, 6), dtype=f32, device=dev)
+        H = torch.zeros((F - 1, F - 1, 6, 6), dtype=dt, device=dev)
         H[idx, idx] = H_ff + lam * eye6
         Bh = B / h_r[:, None, None]
         H = H - torch.einsum("nfa,ngb->fgab", Bh, B)
@@ -163,3 +169,15 @@ def solve_window_ba(
         nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
     return WindowBAResult(poses=torch.cat([poses_init[:1], T_stack], 0), inv_depth=rho,
                           chi2=Fv)
+
+
+def solve_window_ba_auto(
+    poses_init, uv, alive, depth0, fx, fy, cx, cy, params: WindowBAParams = WindowBAParams(),
+) -> WindowBAResult:
+    """The CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    A kernel that fails to build or launch raises: there is no fallback."""
+    if uv.is_cuda:
+        from multimot_track_tpu_torch.solvers.window_ba_cuda import solve_window_ba_cuda
+
+        return solve_window_ba_cuda(poses_init, uv, alive, depth0, fx, fy, cx, cy, params=params)
+    return solve_window_ba(poses_init, uv, alive, depth0, fx, fy, cx, cy, params=params)
