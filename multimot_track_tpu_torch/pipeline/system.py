@@ -60,7 +60,7 @@ from multimot_track_tpu_torch.pipeline.keyframes import (
 )
 from multimot_track_tpu_torch.pipeline.live_refine import live_refine_step
 from multimot_track_tpu_torch.solvers.ransac import HypothesisSampler, MultinomialSampler
-from multimot_track_tpu_torch.utils.profiling import _StageCtx, span
+from multimot_track_tpu_torch.utils.profiling import _StageCtx, count, span
 
 
 def _describe_frame_device(gray_u8: torch.Tensor, depth_w: torch.Tensor, bf: float,
@@ -274,6 +274,9 @@ class MultiMotSystem:
         # from the start because a prefetch thread appends to it while the
         # live thread reads the dict
         self.stage_times: Dict[str, List[float]] = {"upload": []}
+        # per-span event counts (a list per counter path, one entry a call:
+        # ``record/slots_active``)
+        self.stage_counts: Dict[str, List[int]] = {}
         self.keyframes = (
             KeyframeStore(capacity=be.kf_capacity, min_gap=keyframe_gap, device=self.device,
                           match_backend=match_backend)
@@ -283,8 +286,9 @@ class MultiMotSystem:
     # ------------------------------------------------------------------
     def _stage(self, name: str):
         """``with self._stage("relocalize"):`` accumulates wall time in
-        ``stage_times`` under the stage's name (``profiling._StageCtx``)."""
-        return _StageCtx(self.stage_times, name)
+        ``stage_times`` under the stage's name (``profiling._StageCtx``);
+        ``profiling.count`` inside it counts into ``stage_counts``."""
+        return _StageCtx(self.stage_times, name, counts=self.stage_counts)
 
     def stage_report(self) -> Dict[str, Dict[str, float]]:
         """Aggregate stage_times: total seconds, call count, mean ms, of
@@ -396,7 +400,8 @@ class MultiMotSystem:
         optional device tensors from :meth:`upload`.  Raises ``ValueError``
         for a frame whose size is not the camera config's.  The call is the
         span ``track_rgbd``, whose profiler range carries the frame index."""
-        with _StageCtx(self.stage_times, "track_rgbd", args=str(self._frame_idx)):
+        with _StageCtx(self.stage_times, "track_rgbd", args=str(self._frame_idx),
+                       counts=self.stage_counts):
             return self._track_rgbd(fd, uploaded)
 
     def _track_rgbd(self, fd: FrameData, uploaded):
@@ -514,7 +519,7 @@ class MultiMotSystem:
         pend.update(use_lm=use_lm, use_win=use_win, win_after=win_after)
         if not (use_lm or use_win):
             return
-        with _StageCtx(self.stage_times, "refine_prep"):
+        with _StageCtx(self.stage_times, "refine_prep", counts=self.stage_counts):
             feats, lmap = (None,) * 4, (None,) * 3
             if use_lm:
                 feats = pend["feats"]
@@ -1128,7 +1133,9 @@ class MultiMotSystem:
         """Append one frame to the evaluation stores and associate track IDs.
         ``Tcw_online``: the device solve's pose before local-map refinement;
         it anchors the raw trajectory and the P_lc decomposition (the device
-        solved the object motions against it)."""
+        solved the object motions against it).  Counts ``slots_active``, the
+        object slots that carried a mover, from host values, in the
+        innermost open span."""
         if frame_idx is None:
             frame_idx = self._frame_idx
         m = self.map
@@ -1180,6 +1187,7 @@ class MultiMotSystem:
                 has_gt=bool(ob.has_gt[slot]),
             ))
         self._sem_to_track = new_map
+        count("slots_active", len(new_map))
 
     # ------------------------------------------------------------------
     def summary(self) -> dict:

@@ -21,6 +21,13 @@ thread's context, recorded under that span's path plus its name
 nothing.  While a profiler runs on the thread, each span also opens the
 profiler range ``"mmt:" + path``, which puts the spans on the device
 trace's clock; with none running, no range is opened.
+
+A span may also carry a counter recorder, a ``{path: [n, ...]}`` dict
+(``MultiMotSystem.stage_counts``), which the spans opened inside it share:
+``count(name, n)`` appends ``n`` under the innermost open span's path plus
+its name (``"record/slots_active"``), once a call.  It reads no device and
+launches nothing; outside every span, or in a span without a counter
+recorder, it records nothing.
 """
 
 from __future__ import annotations
@@ -36,22 +43,25 @@ import torch
 from torch.autograd import _profiler_enabled
 
 SPAN_PREFIX = "mmt:"            # prefix of the spans' profiler ranges
-# (recorder, path) of the innermost open span in this thread's context
+# (recorder, path, counter recorder or None) of the innermost open span in
+# this thread's context
 _OPEN: contextvars.ContextVar = contextvars.ContextVar("mmt_open_span", default=None)
 _NO_SPAN = contextlib.nullcontext()
 
 
 class _StageCtx:
     """One span: appends its elapsed wall seconds to ``acc[path]``;
-    ``args`` goes to its profiler range."""
+    ``args`` goes to its profiler range; ``counts`` is the counter recorder
+    of ``count`` inside it."""
 
-    __slots__ = ("acc", "path", "args", "t0", "token", "range")
+    __slots__ = ("acc", "path", "args", "counts", "t0", "token", "range")
 
-    def __init__(self, acc: Dict[str, List[float]], path: str, args: str = None):
-        self.acc, self.path, self.args = acc, path, args
+    def __init__(self, acc: Dict[str, List[float]], path: str, args: str = None,
+                 counts: Dict[str, List[int]] = None):
+        self.acc, self.path, self.args, self.counts = acc, path, args, counts
 
     def __enter__(self):
-        self.token = _OPEN.set((self.acc, self.path))
+        self.token = _OPEN.set((self.acc, self.path, self.counts))
         self.range = None
         if _profiler_enabled():
             self.range = torch.profiler.record_function(SPAN_PREFIX + self.path, self.args)
@@ -75,7 +85,16 @@ def span(name: str):
     outer = _OPEN.get()
     if outer is None:
         return _NO_SPAN
-    return _StageCtx(outer[0], outer[1] + "/" + name)
+    return _StageCtx(outer[0], outer[1] + "/" + name, counts=outer[2])
+
+
+def count(name: str, n: int = 1):
+    """Record ``n`` events of ``name`` in the innermost open span: appends
+    ``n`` to its counter recorder under the span's path plus ``name``.
+    Outside every span, or in one without a counter recorder, nothing."""
+    outer = _OPEN.get()
+    if outer is not None and outer[2] is not None:
+        outer[2].setdefault(outer[1] + "/" + name, []).append(n)
 
 
 def _cuda_devices(tree, out: set) -> set:
