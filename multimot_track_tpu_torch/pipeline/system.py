@@ -8,7 +8,9 @@ pipelined (one-frame-latency, async keyframe cadence) modes, with given
 instance masks or with masks discovered from motion alone:
 
 * per frame, ``tracker.full_step`` (frontend, pair build, ego and object
-  solves) and the frame's FAST + ORB + depth features run on ``device``;
+  solves; on the card replayed from the system's recorded CUDA graphs,
+  ``pipeline/step_graph``) and the frame's FAST + ORB + depth features run
+  on ``device``;
   the local-map refinement and its gates, then the trailing-window BA
   over the last ``window_size`` frames, follow on the device
   (``live_refine``), and the host reads the result once;
@@ -241,6 +243,9 @@ class MultiMotSystem:
         self.map = MapState()
         self._last_obs = None
         self._ctx: Optional[tracker.TrackContext] = None
+        # the pair step's recorded CUDA graphs (``step_graph``), replayed
+        # where they engage; ``reset`` drops them
+        self._step_tape = tracker.StepTape()
         self._frame_idx = 0
         self._sem_to_track: Dict[int, int] = {}
         self._next_track_id = 1
@@ -444,7 +449,8 @@ class MultiMotSystem:
         with self._stage("dispatch_pair"):
             result, new_ctx, obs = tracker.full_step(
                 self.sampler, self._frame_idx, self._last_obs, gray, depth, flow, sem, gt,
-                self._ctx, cfg, backend=self.backend, generator=self._noise_gen)
+                self._ctx, cfg, backend=self.backend, generator=self._noise_gen,
+                tape=self._step_tape)
         feats = None
         if self.enable_keyframes:
             with self._stage("features"):

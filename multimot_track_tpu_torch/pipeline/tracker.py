@@ -17,7 +17,9 @@ solve over all instances of the chunk: camera forward (B), camera backward
 ``dispatch_pair`` span, the step's parts are the spans ``frontend``,
 ``ego``, ``segment``, ``objects``, ``finish`` and ``gt_eval`` (the
 evaluation against the frames' ground truth); elsewhere they record
-nothing.
+nothing.  Given a ``step_graph.StepTape``, ``full_step`` replays the step
+from recorded CUDA graphs where the tape engages; ``span`` and
+``solve_flow_ba_auto`` here are ``step_graph``'s, the cuts of that tape.
 
 Index clamps written out where XLA clamps silently and torch raises:
 ``slot_of_label[ob_cur_label]``, ``H_prev_by_label[mode_lab]``; the JAX
@@ -37,9 +39,10 @@ from multimot_track_tpu_torch.frontend.fast import topk_stable
 from multimot_track_tpu_torch.geometry import camera, se3
 from multimot_track_tpu_torch.ops import photometric
 from multimot_track_tpu_torch.pipeline.frames import PairInputs, tree_map
+from multimot_track_tpu_torch.pipeline.step_graph import StepTape, solve_flow_ba_auto, span
 from multimot_track_tpu_torch.solvers import ransac
-from multimot_track_tpu_torch.solvers.flow_ba import FlowBAParams, FlowBAResult, solve_flow_ba_auto
-from multimot_track_tpu_torch.utils.profiling import span
+from multimot_track_tpu_torch.solvers.flow_ba import FlowBAParams, FlowBAResult
+from multimot_track_tpu_torch.utils.profiling import count
 
 # SolverConfig.flow_ba_backend keeps the JAX package's names
 _BACKENDS = {"auto": "auto", "xla": "torch", "pallas": "cuda", "torch": "torch", "cuda": "cuda"}
@@ -504,23 +507,33 @@ def first_step(gray_u8, depth_w, flow_w, sem_w, gt, cfg: PipelineConfig,
 
 def full_step(sampler: ransac.HypothesisSampler, pair_id: int, prev_obs, gray_u8, depth_w,
               flow_w, sem_w, gt_cur, ctx: TrackContext, cfg: PipelineConfig,
-              backend: Optional[str] = None, generator: Optional[torch.Generator] = None):
+              backend: Optional[str] = None, generator: Optional[torch.Generator] = None,
+              tape: Optional[StepTape] = None):
     """One frame of the live loop: frontend, pair build and ``track_pair``
     at B = 1 against the previous frame's observation.  ``pair_id`` names
     the pair for the hypothesis sampler (the live system passes the frame
-    index).  Returns (PairResult, next TrackContext, this FrameObservation),
-    all without the batch axis."""
+    index).  ``tape``: the caller's recorded step, replayed where it
+    engages (``step_graph``); the frame counts ``replayed`` 1 if it was, 0
+    if the step ran eagerly.  Returns (PairResult, next TrackContext, this
+    FrameObservation), all without the batch axis, owned by the caller."""
     from multimot_track_tpu_torch.pipeline import frames as F
 
     noise = generator if (cfg.solver.depth_noise or cfg.solver.flow_outliers) else None
-    with span("frontend"):
-        depth_raw, sem, gray, obs = _frame_observation(gray_u8, depth_w, flow_w, sem_w, gt_cur,
-                                                       cfg, noise)
-        pair = F.build_pair(tree_map(lambda x: x[None], prev_obs), depth_raw, sem, obs.gt, cfg,
-                            cur_gray=gray)
-    ctx_b = tree_map(lambda x: x[None], ctx)
-    res = track_pairs(pair, ctx_b, cfg, sampler, [pair_id], backend)
-    with span("finish"):
-        new_ctx = next_context(res, ctx_b, cfg.padding.k_obj_max)
-        first = lambda x: x[0]
-        return tree_map(first, res), tree_map(first, new_ctx), tree_map(first, obs)
+
+    def step(prev_obs, gray_u8, depth_w, flow_w, sem_w, gt_cur, ctx):
+        with span("frontend"):
+            depth_raw, sem, gray, obs = _frame_observation(gray_u8, depth_w, flow_w, sem_w,
+                                                           gt_cur, cfg, noise)
+            pair = F.build_pair(tree_map(lambda x: x[None], prev_obs), depth_raw, sem, obs.gt,
+                                cfg, cur_gray=gray)
+        ctx_b = tree_map(lambda x: x[None], ctx)
+        res = track_pairs(pair, ctx_b, cfg, sampler, [pair_id], backend)
+        with span("finish"):
+            new_ctx = next_context(res, ctx_b, cfg.padding.k_obj_max)
+            first = lambda x: x[0]
+            return tree_map(first, res), tree_map(first, new_ctx), tree_map(first, obs)
+
+    inputs = (prev_obs, gray_u8, depth_w, flow_w, sem_w, gt_cur, ctx)
+    out = tape.run(step, inputs, sampler, noise, cfg, backend) if tape is not None else None
+    count("replayed", int(out is not None))
+    return out if out is not None else step(*inputs)

@@ -51,6 +51,15 @@ class FlowBAResult(NamedTuple):
     mean_reproj: torch.Tensor  # (M,) mean sqrt(chi2) over inliers
 
 
+def empty_result(M: int, N: int, device) -> FlowBAResult:
+    """Uninitialised tensors shaped and typed as a solve of M instances of
+    N points returns them."""
+    e = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=device)
+    return FlowBAResult(T=e(M, 4, 4), flow=e(M, N, 2), chi2=e(M, N),
+                        inliers=e(M, N, dtype=torch.bool), n_inliers=e(M, dtype=torch.int64),
+                        mean_reproj=e(M))
+
+
 def world_points(Twl, obs, depth, fx, fy, cx, cy):
     """X_w = Twl @ pi^-1(obs, depth): (M, N, 3)."""
     return se3.transform(Twl, camera.backproject(obs, depth, fx, fy, cx, cy))

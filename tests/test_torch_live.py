@@ -32,6 +32,7 @@ from multimot_track_tpu.pipeline import live_refine as jlive_refine
 from multimot_track_tpu.pipeline.system import MultiMotSystem as JSystem
 from multimot_track_tpu_torch import config as tconfig
 from multimot_track_tpu_torch.io.synth import synth_camera_config as t_synth_cam
+from multimot_track_tpu_torch.pipeline import step_graph
 from multimot_track_tpu_torch.pipeline.system import MultiMotSystem as TSystem
 from test_torch_ransac import FoldInKeys, JaxKeySampler
 from test_torch_tracker import small_config
@@ -155,6 +156,17 @@ def test_live_system_sync_matches_jax(sync_runs):
     for a, b in zip(rt, rj):
         np.testing.assert_allclose(a.Tcw_cur, np.asarray(b.Tcw_cur), atol=T_TOL)
         assert int(a.n_static_inliers) == int(b.n_static_inliers)
+
+
+def test_a_host_sampler_keeps_the_pair_step_eager(sync_runs):
+    """The JAX-key sampler names its draws, which reads the object slots back
+    to the host, so the tape of CUDA graphs (``pipeline/step_graph``) never
+    engages for it: every pair counts ``replayed`` 0, the tape holds no
+    signature."""
+    t = sync_runs[3]
+    assert step_graph._generators(t.sampler, None, []) is None
+    assert t.stage_counts["dispatch_pair/replayed"] == [0] * 4
+    assert t._step_tape._key is None and t._step_tape._tape is None
 
 
 def test_keyframe_map_matches_jax(sync_runs):

@@ -23,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 from multimot_track_tpu_torch import config as tconfig
 from multimot_track_tpu_torch.io.synth import make_multimover_frames
 from multimot_track_tpu_torch.io.synth import synth_camera_config as t_synth_cam
+from multimot_track_tpu_torch.pipeline import step_graph
 from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
 from multimot_track_tpu_torch.utils import profiling
 from test_torch_live import slice_config
@@ -127,6 +128,16 @@ def test_profiler_ranges_only_while_a_profiler_runs(live):
     p0, p1 = spans["mmt:dispatch_pair"]
     c0, c1 = spans["mmt:dispatch_pair/ego"]
     assert p0 <= c0 and c1 <= p1
+
+
+def test_the_cpu_pair_step_runs_eagerly_on_every_frame(live):
+    """The tape of CUDA graphs (``pipeline/step_graph``) engages on the card
+    alone: on the CPU every pair counts ``replayed`` 0 under
+    ``dispatch_pair`` and the tape holds no signature."""
+    s = live[0]
+    assert s.stage_counts["dispatch_pair/replayed"] == [0, 0, 0]
+    assert s._step_tape._key is None and s._step_tape._tape is None
+    assert step_graph._generators(s.sampler, None, []) is None     # a CPU generator
 
 
 def test_span_outside_every_span_records_nothing_and_opens_no_range(monkeypatch):

@@ -10,7 +10,9 @@ and profiled slice of the window's last seconds), reads the program's
 line: the card, whether the window's answers were correct, ms a frame of
 the window, of the frames before the slice and of the frames in it, the
 stage spans' host ms a frame before the slice, and per span its counts and
-times a frame of the slice with the per-layer counts they give.  With
+times a frame of the slice with the per-layer counts they give, and each
+system's ``dispatch_pair/replayed`` counts (whether its pair step replayed
+its CUDA graphs, a frame at a time) as runs of equal values.  With
 ``--without-ranges`` the program opens no profiler range in the slice (its
 spans still time the host), which measures what the ranges cost; the line
 then holds no spans.  ``--out`` appends the line to a file too.
@@ -51,6 +53,15 @@ def main() -> int:
     if args.without_ranges:
         from multimot_track_tpu_torch.utils import profiling
         profiling._profiler_enabled = lambda: False
+    from multimot_track_tpu_torch.pipeline.system import MultiMotSystem
+
+    counters, init = [], MultiMotSystem.__init__
+
+    def counted_init(self, *a, **kw):
+        init(self, *a, **kw)
+        counters.append(self.stage_counts)
+
+    MultiMotSystem.__init__ = counted_init
 
     runner, _ = run.prepare(cell, args.seed, True)
     rec = runner.window(args.seconds)
@@ -74,6 +85,7 @@ def main() -> int:
         "before_slice_ms_per_frame": ms(before), "slice_ms_per_frame": ms(sliced),
         "slice_busy_s": rec["profile"]["busy_s"], "slice_wall_s": rec["profile"]["wall_s"],
         "stage_ms_per_frame": {k: 1e3 * t / len(before) for k, t in sorted(stage_s.items())},
+        "replayed_runs": [runs(c.get("dispatch_pair/replayed", [])) for c in counters],
     }
     by = read.get("spans")
     if by is not None and not args.without_ranges and sliced:
@@ -87,6 +99,17 @@ def main() -> int:
             f.write(line + "\n")
     print(line)
     return 0
+
+
+def runs(values):
+    """[[value, how many in a row], ...]."""
+    out = []
+    for v in values:
+        if out and out[-1][0] == v:
+            out[-1][1] += 1
+        else:
+            out.append([v, 1])
+    return out
 
 
 if __name__ == "__main__":
