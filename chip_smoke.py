@@ -568,6 +568,8 @@ def finite_tree(res) -> bool:
 
 
 def phase_slice(dev, frames):
+    import dataclasses
+
     import torch
 
     from multimot_track_tpu_torch.config import DEFAULT_CONFIG
@@ -596,8 +598,9 @@ def phase_slice(dev, frames):
     if not (np.all(np.isfinite(Tcw)) and finite_tree(res_k)):
         raise SystemExit("non-finite output from the kernel run")
 
-    Tcw_p, res_p, _ = batch.run_sequence_batched(frames, cfg, seed=0, device=dev,
-                                                 backend="torch")
+    plain = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                flow_ba_backend="torch"))
+    Tcw_p, res_p, _ = batch.run_sequence_batched(frames, plain, seed=0, device=dev)
     rpe_k = float(np.mean(res_k.cam_t_rpe_rel))
     rpe_p = float(np.mean(res_p.cam_t_rpe_rel))
     log(f"[slice] mean cam t-RPE: kernel {rpe_k:.5f}, plain {rpe_p:.5f}, "

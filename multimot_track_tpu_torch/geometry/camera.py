@@ -26,6 +26,21 @@ def project(xyz: torch.Tensor, fx, fy, cx, cy, eps: float = 1e-9) -> torch.Tenso
     return torch.stack([u, v], -1)
 
 
+def project_jacobian(y: torch.Tensor, fx, fy, bf=None) -> torch.Tensor:
+    """d pi / d y at camera-frame points y (..., 3): (..., 2, 3), with 1/z
+    taken at z clamped to 1e-6; with ``bf``, (..., 3, 3), the stereo
+    disparity bf/z's row below."""
+    inv_z = 1.0 / torch.clamp(y[..., 2], min=1e-6)
+    zero = torch.zeros_like(inv_z)
+    rows = [
+        torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
+        torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
+    ]
+    if bf is not None:
+        rows.append(torch.stack([zero, zero, -bf * inv_z * inv_z], -1))
+    return torch.stack(rows, -2)
+
+
 def disparity_png_to_depth(raw: torch.Tensor, bf: float) -> torch.Tensor:
     """KITTI disparity png values -> metric depth (+inf where disparity 0)."""
     disp = raw.to(torch.float32) / 256.0

@@ -33,6 +33,12 @@ def _eye3(like: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
+def point_jacobian(y: torch.Tensor) -> torch.Tensor:
+    """d(exp(xi) @ y) / d xi at xi = 0 for points y (..., 3): [-[y]x | I],
+    (..., 3, 6)."""
+    return torch.cat([-hat(y), _eye3(y).expand(y.shape[:-1] + (3, 3))], -1)
+
+
 def exp_so3(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (..., 3) -> (..., 3, 3).  Safe at ||omega|| -> 0."""
     theta2 = (omega * omega).sum(-1)

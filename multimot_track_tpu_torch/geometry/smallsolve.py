@@ -3,8 +3,9 @@
 Port of ``multimot_track_tpu.geometry.smallsolve``: the same unrolled
 Cholesky (diagonal clamped at 1e-30) so that the plain flow-BA and the
 RANSAC polish factor their 6x6 systems with the arithmetic the JAX package
-and the CUDA kernel use, and the adjugate 3x3 inverse of the flow+depth
-BA's point blocks.
+and the CUDA kernel use, the adjugate 3x3 inverse of the flow+depth BA's
+point blocks, and the LM loops' step acceptance with Nielsen's damping
+schedule.
 """
 
 from __future__ import annotations
@@ -72,3 +73,16 @@ def inv_spd3(H: torch.Tensor) -> torch.Tensor:
     F = a * d - b * b
     rows = [torch.stack(r, -1) for r in ((A, B, C), (B, D, E), (C, E, F))]
     return torch.stack(rows, -2) * inv_det[..., None, None]
+
+
+def nielsen_step(F, F_new, pred, lam, nu):
+    """An LM step's acceptance and Nielsen's damping schedule.  The step is
+    accepted where it lowers the objective F to a finite F_new; then lambda
+    scales by max(1/3, 1 - (2 gain - 1)^3), gain the actual decrease over
+    the predicted ``pred``, and nu resets to 2; else lambda scales by nu and
+    nu doubles.  Returns (accept, lambda, nu)."""
+    accept = (F_new < F) & torch.isfinite(F_new)
+    gain = (F - F_new) / torch.clamp(pred, min=1e-20)
+    lam_acc = lam * torch.clamp(1.0 - (2.0 * gain - 1.0) ** 3, min=1.0 / 3.0)
+    return (accept, torch.where(accept, lam_acc, lam * nu),
+            torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0))

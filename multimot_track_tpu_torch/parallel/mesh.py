@@ -33,18 +33,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from multimot_track_tpu_torch.pipeline.frames import tree_map
+from multimot_track_tpu_torch.pipeline.frames import tree_leaves, tree_map
 
 PAIR_AXIS = "pair"
 POINT_AXIS = "point"
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
-
-
-def tree_leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
 
 
 class Mesh:

@@ -25,7 +25,8 @@ from multimot_track_tpu_torch.config import PipelineConfig
 from multimot_track_tpu_torch.geometry import camera
 from multimot_track_tpu_torch.parallel.mesh import LocalRows, Mesh
 from multimot_track_tpu_torch.solvers import ransac
-from multimot_track_tpu_torch.solvers.flow_ba import FlowBAParams, solve_flow_ba_auto
+from multimot_track_tpu_torch.solvers.flow_ba import (
+    camera_params, flow_ba_route, solve_flow_ba_auto)
 
 
 def solve_relative_batch(
@@ -45,13 +46,6 @@ def solve_relative_batch(
     fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
     B = st_uv.shape[0]
     eye = torch.eye(4, dtype=st_uv.dtype, device=st_uv.device).expand(B, 4, 4)
-    params = FlowBAParams(
-        reproj_info=sol.reproj_info,
-        prior_info=sol.cam_flow_prior_info,
-        rp_thres=sol.cam_rp_thres,
-        iters=sol.cam_lm_iters,
-        tau=sol.lm_tau,
-    )
     Xl = camera.backproject(st_uv, st_depth, fx, fy, cx, cy)   # last-cam frame = "world"
     xyz_cur = camera.backproject(st_cur_uv, st_cur_depth, fx, fy, cx, cy)
     rr = ransac.ransac_rigid_pose(
@@ -61,8 +55,8 @@ def solve_relative_batch(
         refine_iters=sol.refine_gn_iters,
     )
     res = solve_flow_ba_auto(
-        rr.T, eye, st_uv, st_flow, st_depth, st_valid, fx, fy, cx, cy, params=params,
-        backend=sol.flow_ba_backend,
+        rr.T, eye, st_uv, st_flow, st_depth, st_valid, fx, fy, cx, cy,
+        params=camera_params(sol), backend=flow_ba_route(sol.flow_ba_backend),
     )
     return res.T
 

@@ -59,7 +59,7 @@ def frontend_batch(gray_u8, depth_w, flow_w, sem_w, gts: F.GTTable,
 
 def track_pairs(prev_obs: F.FrameObservation, cur_gray_u8, cur_depth_w, cur_sem_w,
                 gt_cur: F.GTTable, cfg: PipelineConfig, sampler: HypothesisSampler,
-                pair_ids, backend: Optional[str] = None) -> tracker.PairResult:
+                pair_ids) -> tracker.PairResult:
     """Solve B pre-paired frames in last-camera coordinates.  Returns the
     (B, ...) PairResult whose Tcw_cur is each pair's relative motion."""
     B = cur_gray_u8.shape[0]
@@ -77,37 +77,27 @@ def track_pairs(prev_obs: F.FrameObservation, cur_gray_u8, cur_depth_w, cur_sem_
         gt_cur_rel, cfg, cur_gray=cur_gray_u8.to(torch.float32),
     )
     ctx = tracker.initial_context(cfg.padding.k_obj_max, B, dev)
-    res = tracker.track_pairs(pair, ctx, cfg, sampler, pair_ids, backend)
+    res = tracker.track_pairs(pair, ctx, cfg, sampler, pair_ids)
     return res._replace(obj_label_map=torch.zeros((B, 0), dtype=torch.int32, device=dev))
 
 
-def track_batch(obs_stack, gray_u8, depth_w, sem_w, gts, cfg, sampler, pair_ids,
-                backend=None):
+def track_batch(obs_stack, gray_u8, depth_w, sem_w, gts, cfg, sampler, pair_ids):
     """Solve all F-1 pairs of a stacked chunk at once (thin pairing wrapper
     over ``track_pairs``)."""
     return track_pairs(_slice(obs_stack, slice(None, -1)), gray_u8[1:], depth_w[1:],
-                       sem_w[1:], _slice(gts, slice(1, None)), cfg, sampler, pair_ids,
-                       backend)
+                       sem_w[1:], _slice(gts, slice(1, None)), cfg, sampler, pair_ids)
 
 
 def stream_chunk(carry_obs: F.FrameObservation, gray_u8, depth_w, flow_w, sem_w,
-                 gts: F.GTTable, cfg: PipelineConfig, sampler: HypothesisSampler, pair_ids,
-                 backend: Optional[str] = None):
+                 gts: F.GTTable, cfg: PipelineConfig, sampler: HypothesisSampler, pair_ids):
     """One serving stage: C new frames in, C solved pairs out.
     ``carry_obs`` is the previous chunk's last observation (batch 1, on the
     device: the boundary frame is never uploaded or described again).
     Returns (the (C, ...) PairResult, this chunk's last observation)."""
     obs = frontend_batch(gray_u8, depth_w, flow_w, sem_w, gts, cfg)
     prev = _cat([carry_obs, _slice(obs, slice(None, -1))])
-    res = track_pairs(prev, gray_u8, depth_w, sem_w, gts, cfg, sampler, pair_ids, backend)
+    res = track_pairs(prev, gray_u8, depth_w, sem_w, gts, cfg, sampler, pair_ids)
     return res, _slice(obs, slice(-1, None))
-
-
-def frontend_one(gray_u8, depth_w, flow_w, sem_w, gt: F.GTTable, cfg: PipelineConfig):
-    """Single-frame frontend (the streaming mode's chunk-0 bootstrap): one
-    frame's wire arrays and GT table -> its observation, batch 1."""
-    return frontend_batch(gray_u8[None], depth_w[None], flow_w[None], sem_w[None],
-                          F.stack_gt([gt], gray_u8.device), cfg)
 
 
 def pack_frame_wire(fd, cfg: PipelineConfig = DEFAULT_CONFIG):
@@ -158,7 +148,6 @@ def run_sequence_batched(
     max_pairs_per_call: int = 16,
     device="cuda",
     sampler: Optional[HypothesisSampler] = None,
-    backend: Optional[str] = None,
 ):
     """End-to-end batched tracking of FrameData records on ``device``.
 
@@ -174,7 +163,7 @@ def run_sequence_batched(
         c1 = min(c0 + max_pairs_per_call, n_pairs)
         sl = slice(c0, c1 + 1)
         res = track_batch(_slice(obs, sl), gray_u8[sl], depth_w[sl], sem_w[sl],
-                          _slice(gt_stack, sl), cfg, sampler, list(range(c0, c1)), backend)
+                          _slice(gt_stack, sl), cfg, sampler, list(range(c0, c1)))
         chunks.append(state.result_to_numpy(res))
     res = F.tree_map(lambda *xs: np.concatenate(xs), *chunks)
     return _compose_batch_outputs(res, Fn)
@@ -257,7 +246,6 @@ def run_sequence_streaming(
     prepacked: List = None,
     device="cuda",
     sampler: Optional[HypothesisSampler] = None,
-    backend: Optional[str] = None,
 ):
     """Serving mode: chunks of ``chunk`` new frames in v2 wire form, each
     chunk's frontend and pair solves run together (``stream_chunk``) with
@@ -278,7 +266,7 @@ def run_sequence_streaming(
     results = []
     for pair_ids, arrays in chunks:
         res, carry = stream_chunk(carry, *chunk_inputs(upload(arrays)), cfg, sampler,
-                                  pair_ids, backend)
+                                  pair_ids)
         results.append(res)
     res = state.result_to_numpy(_cat(results))       # the one drain
     res = F.tree_map(lambda x: x[:n_pairs], res)

@@ -34,6 +34,14 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nest of NamedTuples, tuples, lists and dicts, in
+    ``tree_map`` order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
 class GTTable(NamedTuple):
     """Ground-truth per-frame data, padded to k_obj_max entries."""
 

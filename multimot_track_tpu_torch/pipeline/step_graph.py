@@ -28,10 +28,10 @@ The tape engages only where the step is a pure function of its inputs on
 the card: CUDA inputs and the ``MultinomialSampler`` drawing from a CUDA
 generator (a sampler that names its draws reads the object slots back to
 the host).  A signature is the inputs' shapes, dtypes and devices, the
-config, the flow-BA backend, the generators and the TF32 flags.  The first
-frame of a signature runs eagerly (it loads every kernel the step
-launches), the second records the tape and replays it, and a new signature
-drops the tape and starts again.  Everything else runs eagerly.
+config (which names the flow-BA route), the generators and the TF32
+flags.  The first frame of a signature runs eagerly (it loads every kernel
+the step launches), the second records the tape and replays it, and a new
+signature drops the tape and starts again.  Everything else runs eagerly.
 
 ``span`` and ``solve_flow_ba_auto`` are the step's seams: outside a
 recording they are ``profiling.span`` and ``flow_ba.solve_flow_ba_auto``.
@@ -46,7 +46,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from multimot_track_tpu_torch.pipeline.frames import tree_map
+from multimot_track_tpu_torch.pipeline.frames import tree_leaves, tree_map
 from multimot_track_tpu_torch.solvers import flow_ba, ransac
 from multimot_track_tpu_torch.utils import profiling
 
@@ -68,14 +68,6 @@ def solve_flow_ba_auto(*args, **kwargs) -> flow_ba.FlowBAResult:
     if rec is None:
         return flow_ba.solve_flow_ba_auto(*args, **kwargs)
     return rec.solve(args, kwargs)
-
-
-def _leaves(tree) -> list:
-    """The leaves of a nest of NamedTuples, tuples, lists and dicts, in
-    ``tree_map`` order."""
-    out = []
-    tree_map(out.append, tree)
-    return out
 
 
 def _copy(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor]):
@@ -129,7 +121,7 @@ class _Solve:
 
     def __init__(self, args: tuple, kwargs: dict, out: flow_ba.FlowBAResult):
         self.call, self.out = (args, kwargs), out
-        self.inputs = [x for x in _leaves(self.call) if isinstance(x, torch.Tensor)]
+        self.inputs = [x for x in tree_leaves(self.call) if isinstance(x, torch.Tensor)]
 
     def __call__(self, spans: list):
         copies = iter(_fresh(self.inputs))
@@ -210,15 +202,15 @@ class StepTape:
         self._stream = None       # the capture stream
 
     def run(self, step: Callable, inputs: tuple, sampler, noise: Optional[torch.Generator],
-            cfg, backend: Optional[str]):
+            cfg):
         """``step(*inputs)``'s outputs from the tape, recorded first on the
         second frame of a signature.  None where the step is to run eagerly:
         the tape does not engage, or this frame starts a signature."""
-        leaves = _leaves(inputs)
+        leaves = tree_leaves(inputs)
         gens = _generators(sampler, noise, leaves)
         if gens is None:
             return None
-        key = (cfg, backend, torch.backends.cuda.matmul.allow_tf32,
+        key = (cfg, torch.backends.cuda.matmul.allow_tf32,
                torch.backends.cudnn.allow_tf32, gens,
                tuple((x.shape, x.dtype, x.device) for x in leaves))
         if key != self._key:
@@ -257,5 +249,5 @@ class StepTape:
             raise
         finally:
             _RECORDING.reset(token)
-        self._tape, self._inputs = rec.tape, _leaves(static)
-        self._out_tree, self._outputs = out, _leaves(out)
+        self._tape, self._inputs = rec.tape, tree_leaves(static)
+        self._out_tree, self._outputs = out, tree_leaves(out)

@@ -167,10 +167,6 @@ def _to_device(tree, device):
     return F.tree_map(lambda x: torch.from_numpy(np.array(x)).to(device), tree)
 
 
-def _to_numpy(tree):
-    return F.tree_map(lambda x: x.detach().cpu().numpy(), tree)
-
-
 class MultiMotSystem:
     """End-to-end RGB-D multi-motion tracking (the reference's TrackRGBD).
 
@@ -191,9 +187,9 @@ class MultiMotSystem:
 
     ``device``: where the per-frame work runs.  ``sampler``: the hypothesis
     sampler (default: multinomial draws from a generator seeded with
-    ``seed``).  ``backend``: the flow-BA route (``"auto" | "cuda" |
-    "torch"``, default from the config); ``match_backend``: the projected
-    matcher's route (``"auto" | "cuda" | "torch"``).
+    ``seed``).  The flow-BA route is ``cfg.solver.flow_ba_backend``;
+    ``match_backend``: the projected matcher's route (``"auto" | "cuda" |
+    "torch"``).
     """
 
     STATE_OK = "OK"
@@ -206,7 +202,7 @@ class MultiMotSystem:
                  loop_min_kf_separation: int = 3, loop_consistency: int = 3,
                  discover_objects: bool = False, pipelined: bool = False,
                  device="cuda", sampler: Optional[HypothesisSampler] = None,
-                 backend: Optional[str] = None, match_backend: str = "auto"):
+                 match_backend: str = "auto"):
         be = cfg.backend
         if pipelined and not be.fused_refine:
             raise ValueError("pipelined mode requires backend.fused_refine")
@@ -229,7 +225,6 @@ class MultiMotSystem:
         self.sampler = sampler or MultinomialSampler(
             torch.Generator(device=self.device).manual_seed(seed))
         self._noise_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.backend = backend
         self.match_backend = match_backend
         # one-frame-latency serving: track_rgbd returns frame k-1's result;
         # the device odometry chain runs uncorrected and host refinements
@@ -315,7 +310,7 @@ class MultiMotSystem:
             loop_min_kf_separation=self.loop_min_kf_separation,
             loop_consistency=self.loop_consistency, discover_objects=self.discover_objects,
             pipelined=self.pipelined, device=self.device,
-            sampler=self.sampler, backend=self.backend, match_backend=self.match_backend,
+            sampler=self.sampler, match_backend=self.match_backend,
         )
 
     # ------------------------------------------------------------------
@@ -328,8 +323,9 @@ class MultiMotSystem:
         with open(path, "wb") as f:
             pickle.dump({
                 "frame_idx": self._frame_idx,
-                "ctx": _to_numpy(self._ctx) if self._ctx is not None else None,
-                "last_obs": _to_numpy(self._last_obs) if self._last_obs is not None else None,
+                "ctx": state.result_to_numpy(self._ctx) if self._ctx is not None else None,
+                "last_obs": (state.result_to_numpy(self._last_obs)
+                             if self._last_obs is not None else None),
                 "map": self.map,
                 "sem_to_track": self._sem_to_track,
                 "next_track_id": self._next_track_id,
@@ -449,8 +445,7 @@ class MultiMotSystem:
         with self._stage("dispatch_pair"):
             result, new_ctx, obs = tracker.full_step(
                 self.sampler, self._frame_idx, self._last_obs, gray, depth, flow, sem, gt,
-                self._ctx, cfg, backend=self.backend, generator=self._noise_gen,
-                tape=self._step_tape)
+                self._ctx, cfg, generator=self._noise_gen, tape=self._step_tape)
         feats = None
         if self.enable_keyframes:
             with self._stage("features"):
@@ -619,17 +614,26 @@ class MultiMotSystem:
                     k: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
                     for k, v in kw.items()})
 
+        # the local-map pose: fused, the gates the device evaluated (a LOST
+        # frame discards them); else the host's local-map tracking
+        T_lm = refined_last = None
         if be.fused_refine:
-            # the device evaluated the gates; a LOST frame discards them
             if flow_ok and use_lm and accept_lm:
-                result = result._replace(Tcw_cur=T1)
-                self._velocity = (T1 @ np.linalg.inv(Tcw_last)).astype(np.float32)
-                _fix_ctx(Tcw_last=T1, T_velocity=self._velocity)
-                self.lm_accepted_frames.append(frame_idx)
-            with self._stage("record"):
-                self._record(result, fd, Tcw_online=Tcw_online, frame_idx=frame_idx)
-                self._push_window(pend["gray"], pend["depth"], pend["flow"], pend["sem"],
-                                  len(self.map.camera_poses) - 1)
+                T_lm = T1
+        elif (be.track_local_map and self.keyframes is not None and self.keyframes.frames
+              and self.state == self.STATE_OK):
+            with self._stage("local_map"):
+                T_lm = self._track_local_map(Tcw_online, pend["feats"], fd)
+        if T_lm is not None:
+            result = result._replace(Tcw_cur=T_lm)
+            self._velocity = (T_lm @ np.linalg.inv(Tcw_last)).astype(np.float32)
+            _fix_ctx(Tcw_last=T_lm, T_velocity=self._velocity)
+            self.lm_accepted_frames.append(frame_idx)
+        with self._stage("record"):
+            self._record(result, fd, Tcw_online=Tcw_online, frame_idx=frame_idx)
+            self._push_window(pend["gray"], pend["depth"], pend["flow"], pend["sem"],
+                              len(self.map.camera_poses) - 1)
+        if be.fused_refine:
             if (flow_ok and use_win and n_live >= be.min_window_tracks
                     and np.isfinite(poses_out).all()):
                 # commit the refined window rows (anchored at its frame 0)
@@ -638,30 +642,13 @@ class MultiMotSystem:
                     self.map.camera_poses[r] = np.linalg.inv(
                         poses_out[f] @ Tcw0_abs).astype(np.float32)
                 refined_last = (poses_out[-1] @ Tcw0_abs).astype(np.float32)
-                result = result._replace(Tcw_cur=refined_last)
-                self._after_window_commit(refined_last, _fix_ctx)
-                self.win_accepted_frames.append(frame_idx)
-        else:
-            if (be.track_local_map and self.keyframes is not None and self.keyframes.frames
-                    and self.state == self.STATE_OK):
-                with self._stage("local_map"):
-                    T_lm = self._track_local_map(Tcw_online, pend["feats"], fd)
-                if T_lm is not None:
-                    result = result._replace(Tcw_cur=T_lm)
-                    self._velocity = (T_lm @ np.linalg.inv(Tcw_last)).astype(np.float32)
-                    _fix_ctx(Tcw_last=T_lm, T_velocity=self._velocity)
-                    self.lm_accepted_frames.append(frame_idx)
-            with self._stage("record"):
-                self._record(result, fd, Tcw_online=Tcw_online, frame_idx=frame_idx)
-                self._push_window(pend["gray"], pend["depth"], pend["flow"], pend["sem"],
-                                  len(self.map.camera_poses) - 1)
-            if be.window_refine and self.state == self.STATE_OK:
-                with self._stage("window_refine"):
-                    refined_last = self._refine_window()
-                if refined_last is not None:
-                    result = result._replace(Tcw_cur=refined_last)
-                    self._after_window_commit(refined_last, _fix_ctx)
-                    self.win_accepted_frames.append(frame_idx)
+        elif be.window_refine and self.state == self.STATE_OK:
+            with self._stage("window_refine"):
+                refined_last = self._refine_window()
+        if refined_last is not None:
+            result = result._replace(Tcw_cur=refined_last)
+            self._after_window_commit(refined_last, _fix_ctx)
+            self.win_accepted_frames.append(frame_idx)
 
         if self.enable_keyframes and self.state == self.STATE_OK:
             if self.pipelined and be.async_keyframes:

@@ -41,11 +41,9 @@ from multimot_track_tpu_torch.ops import photometric
 from multimot_track_tpu_torch.pipeline.frames import PairInputs, tree_map
 from multimot_track_tpu_torch.pipeline.step_graph import StepTape, solve_flow_ba_auto, span
 from multimot_track_tpu_torch.solvers import ransac
-from multimot_track_tpu_torch.solvers.flow_ba import FlowBAParams, FlowBAResult
+from multimot_track_tpu_torch.solvers.flow_ba import (
+    FlowBAParams, FlowBAResult, camera_params, flow_ba_route)
 from multimot_track_tpu_torch.utils.profiling import count
-
-# SolverConfig.flow_ba_backend keeps the JAX package's names
-_BACKENDS = {"auto": "auto", "xla": "torch", "pallas": "cuda", "torch": "torch", "cuda": "cuda"}
 
 
 class TrackContext(NamedTuple):
@@ -127,15 +125,13 @@ def track_pairs(
     cfg: PipelineConfig,
     sampler: ransac.HypothesisSampler,
     pair_ids: Sequence[int],
-    backend: Optional[str] = None,
 ) -> PairResult:
     """Track B pairs at once.  ``pair_ids[b]`` names pair b for the
-    hypothesis sampler; ``backend`` overrides cfg.solver.flow_ba_backend
-    ("auto" | "cuda" | "torch")."""
+    hypothesis sampler; the flow-BA runs on cfg.solver.flow_ba_backend."""
     cam, sol, seg = cfg.camera, cfg.solver, cfg.segmentation
     K = cfg.padding.k_obj_max
     fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
-    backend = _BACKENDS[backend or sol.flow_ba_backend]
+    backend = flow_ba_route(sol.flow_ba_backend)
     B = pair.st_uv.shape[0]
     dev = pair.st_uv.device
     bidx = torch.arange(B, device=dev)
@@ -166,8 +162,7 @@ def track_pairs(
                                              sol.cam_init_consensus_px, fx, fy, cx, cy)
             st_solve = torch.where((n0 >= sol.min_gated_static)[:, None], st_solve & inl0, st_solve)
 
-        cam_params = FlowBAParams(reproj_info=sol.reproj_info, prior_info=sol.cam_flow_prior_info,
-                                  rp_thres=sol.cam_rp_thres, iters=sol.cam_lm_iters, tau=sol.lm_tau)
+        cam_params = camera_params(sol)
 
         def solve_cam_sym(subset, T_init):
             """Forward flow-BA plus a backward solve anchored on the current
@@ -455,11 +450,10 @@ def track_pair(
     cfg: PipelineConfig,
     sampler: ransac.HypothesisSampler,
     pair_id: int = 0,
-    backend: Optional[str] = None,
 ) -> PairResult:
     """One pair without the batch axis: ``track_pairs`` at B = 1."""
     res = track_pairs(tree_map(lambda x: x[None], pair), tree_map(lambda x: x[None], ctx),
-                      cfg, sampler, [pair_id], backend)
+                      cfg, sampler, [pair_id])
     return tree_map(lambda x: x[0], res)
 
 
@@ -507,8 +501,7 @@ def first_step(gray_u8, depth_w, flow_w, sem_w, gt, cfg: PipelineConfig,
 
 def full_step(sampler: ransac.HypothesisSampler, pair_id: int, prev_obs, gray_u8, depth_w,
               flow_w, sem_w, gt_cur, ctx: TrackContext, cfg: PipelineConfig,
-              backend: Optional[str] = None, generator: Optional[torch.Generator] = None,
-              tape: Optional[StepTape] = None):
+              generator: Optional[torch.Generator] = None, tape: Optional[StepTape] = None):
     """One frame of the live loop: frontend, pair build and ``track_pair``
     at B = 1 against the previous frame's observation.  ``pair_id`` names
     the pair for the hypothesis sampler (the live system passes the frame
@@ -527,13 +520,13 @@ def full_step(sampler: ransac.HypothesisSampler, pair_id: int, prev_obs, gray_u8
             pair = F.build_pair(tree_map(lambda x: x[None], prev_obs), depth_raw, sem, obs.gt,
                                 cfg, cur_gray=gray)
         ctx_b = tree_map(lambda x: x[None], ctx)
-        res = track_pairs(pair, ctx_b, cfg, sampler, [pair_id], backend)
+        res = track_pairs(pair, ctx_b, cfg, sampler, [pair_id])
         with span("finish"):
             new_ctx = next_context(res, ctx_b, cfg.padding.k_obj_max)
             first = lambda x: x[0]
             return tree_map(first, res), tree_map(first, new_ctx), tree_map(first, obs)
 
     inputs = (prev_obs, gray_u8, depth_w, flow_w, sem_w, gt_cur, ctx)
-    out = tape.run(step, inputs, sampler, noise, cfg, backend) if tape is not None else None
+    out = tape.run(step, inputs, sampler, noise, cfg) if tape is not None else None
     count("replayed", int(out is not None))
     return out if out is not None else step(*inputs)

@@ -17,7 +17,8 @@ instances at once, freezing each instance's state from the iteration its
 ``done`` flag rises, exactly as ``vmap`` of the JAX ``while_loop`` does.
 ``solve_flow_ba_auto`` dispatches: the CUDA kernel (solvers/flow_ba_cuda.py)
 for CUDA tensors, this version for CPU tensors.  There is no fallback
-between the two.
+between the two.  ``flow_ba_route`` reads a config's route for every caller;
+``linearise`` is also the point-sharded solver's (parallel/dist_ba).
 
 ``solve_flow_depth_ba`` is the experimental variant with per-point depth
 as a third point variable (3x3 Schur blocks); it has no caller in either
@@ -65,8 +66,8 @@ def world_points(Twl, obs, depth, fx, fy, cx, cy):
     return se3.transform(Twl, camera.backproject(obs, depth, fx, fy, cx, cy))
 
 
-def _residual_chi2(T, f, Xw, obs, flow_meas, valid, p: FlowBAParams, fx, fy, cx, cy,
-                   w_pt=1.0):
+def residual_chi2(T, f, Xw, obs, flow_meas, valid, p: FlowBAParams, fx, fy, cx, cy,
+                  w_pt=1.0):
     """Robust total objective F (M,) and raw per-point chi2 (M, N)."""
     r_p = (obs + f) - camera.project(se3.transform(T, Xw), fx, fy, cx, cy)
     chi2_p = p.reproj_info * (r_p * r_p).sum(-1)
@@ -80,10 +81,14 @@ def _residual_chi2(T, f, Xw, obs, flow_meas, valid, p: FlowBAParams, fx, fy, cx,
     return F, chi2_p
 
 
-def _build_and_solve(T, f, Xw, obs, flow_meas, valid, lam, p: FlowBAParams,
-                     fx, fy, cx, cy, w_pt=1.0):
-    """One damped Gauss-Newton step by analytic Schur elimination of the
-    flow.  lam is (M,); returns dxi (M, 6), df (M, N, 2), pred (M,)."""
+def linearise(T, f, Xw, obs, flow_meas, valid, lam, p: FlowBAParams, fx, fy, cx, cy,
+              w_pt=1.0):
+    """The Gauss-Newton pieces at (T, f), over any leading axes (lam has
+    them too): the residual Jacobian A (..., N, 2, 6), the robust
+    reprojection information wp (..., N), the flow's gradient g_f
+    (..., N, 2) and damped block h_ff (..., N) (times I2), the pose block
+    H_TT and gradient g_T, and the flow's Schur terms S_H and S_g of them.
+    The reduced system is H_TT + lam I - S_H, g_T - S_g."""
     y = se3.transform(T, Xw)
     r_p = (obs + f) - camera.project(y, fx, fy, cx, cy)
     r_f = f - flow_meas
@@ -93,34 +98,39 @@ def _build_and_solve(T, f, Xw, obs, flow_meas, valid, lam, p: FlowBAParams,
     vw = torch.where(valid, w_rob, torch.zeros_like(w_rob))
     wp = w_pt * p.reproj_info * vw
     wf = p.prior_info * valid.to(wp.dtype)
-
-    inv_z = 1.0 / torch.clamp(y[..., 2], min=1e-6)
-    zero = torch.zeros_like(inv_z)
-    dpi = torch.stack(
-        [
-            torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
-            torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
-        ],
-        -2,
-    )
-    eye = torch.eye(3, dtype=y.dtype, device=y.device).expand(y.shape[:-1] + (3, 3))
-    A = -(dpi @ torch.cat([-se3.hat(y), eye], -1))          # (M, N, 2, 6)
-
-    lam_n = lam[:, None]
-    H_TT = torch.einsum("mnia,mnib,mn->mab", A, A, wp)
-    g_T = torch.einsum("mnia,mni,mn->ma", A, r_p, wp)
-    h_ff = wp + wf + lam_n
+    A = -(camera.project_jacobian(y, fx, fy) @ se3.point_jacobian(y))
+    h_ff = wp + wf + lam[..., None]
     g_f = wp[..., None] * r_p + wf[..., None] * r_f
     AtW = A * wp[..., None, None]
+    return (A, wp, g_f, h_ff,
+            torch.einsum("...nia,...nib,...n->...ab", A, A, wp),
+            torch.einsum("...nia,...ni,...n->...a", A, r_p, wp),
+            torch.einsum("...nia,...nib,...n->...ab", AtW, AtW, 1.0 / h_ff),
+            torch.einsum("...nia,...ni,...n->...a", AtW, g_f, 1.0 / h_ff))
+
+
+def lambda_seed(T_init, Xw, valid, p: FlowBAParams, fx, fy, w_pt=1.0):
+    """Each point's reprojection information times its pixel scale
+    (fx/z)^2 + (fy/z)^2 at T_init; lambda_0 is tau times the largest."""
+    z = torch.clamp(se3.transform(T_init, Xw)[..., 2], min=1e-6)
+    scale = (fx / z) ** 2 + (fy / z) ** 2
+    return torch.where(valid, w_pt * p.reproj_info * scale, torch.zeros_like(scale))
+
+
+def _build_and_solve(T, f, Xw, obs, flow_meas, valid, lam, p: FlowBAParams,
+                     fx, fy, cx, cy, w_pt=1.0):
+    """One damped Gauss-Newton step by analytic Schur elimination of the
+    flow.  lam is (M,); returns dxi (M, 6), df (M, N, 2), pred (M,)."""
+    A, wp, g_f, h_ff, H_TT, g_T, S_H, S_g = linearise(T, f, Xw, obs, flow_meas, valid, lam,
+                                                      p, fx, fy, cx, cy, w_pt=w_pt)
     eye6 = torch.eye(6, dtype=A.dtype, device=A.device)
-    H_red = (H_TT + lam[:, None, None] * eye6
-             - torch.einsum("mnia,mnib,mn->mab", AtW, AtW, 1.0 / h_ff))
-    g_red = g_T - torch.einsum("mnia,mni,mn->ma", AtW, g_f, 1.0 / h_ff)
+    H_red = H_TT + lam[:, None, None] * eye6 - S_H
+    g_red = g_T - S_g
 
     dxi = smallsolve.solve_spd6(H_red, -g_red)
     Adxi = (A @ dxi[:, None, :, None])[..., 0]               # (M, N, 2)
     df = -(g_f + wp[..., None] * Adxi) / h_ff[..., None]
-    pred_flow = torch.where(valid[..., None], df * (lam_n[..., None] * df - g_f),
+    pred_flow = torch.where(valid[..., None], df * (lam[:, None, None] * df - g_f),
                             torch.zeros_like(df)).sum((-2, -1))
     pred = 0.5 * ((dxi * (lam[:, None] * dxi - g_red)).sum(-1) + pred_flow)
     return dxi, df, pred
@@ -143,11 +153,9 @@ def solve_flow_ba(
     Xw = world_points(Twl, obs, depth, fx, fy, cx, cy)
     valid = valid & (depth > 0)
     T, f = T_init, flow_meas
-    F, _ = _residual_chi2(T, f, Xw, obs, flow_meas, valid, p, fx, fy, cx, cy, w_pt=w_pt)
+    F, _ = residual_chi2(T, f, Xw, obs, flow_meas, valid, p, fx, fy, cx, cy, w_pt=w_pt)
 
-    z = torch.clamp(se3.transform(T_init, Xw)[..., 2], min=1e-6)
-    scale = (fx / z) ** 2 + (fy / z) ** 2
-    seed = torch.where(valid, w_pt * p.reproj_info * scale, torch.zeros_like(scale))
+    seed = lambda_seed(T_init, Xw, valid, p, fx, fy, w_pt=w_pt)
     lam = p.tau * torch.clamp(seed.amax(-1), min=1.0)
     nu = torch.full_like(lam, 2.0)
     done = torch.zeros_like(valid[:, 0])
@@ -160,27 +168,38 @@ def solve_flow_ba(
                                          fx, fy, cx, cy, w_pt=w_pt)
         T_new = se3.exp_se3(dxi) @ T
         f_new = f + df
-        F_new, _ = _residual_chi2(T_new, f_new, Xw, obs, flow_meas, valid, p,
-                                  fx, fy, cx, cy, w_pt=w_pt)
-        gain = (F - F_new) / torch.clamp(pred, min=1e-20)
-        accept = (F_new < F) & torch.isfinite(F_new)
-        lam_acc = lam * torch.clamp(1.0 - (2.0 * gain - 1.0) ** 3, min=1.0 / 3.0)
+        F_new, _ = residual_chi2(T_new, f_new, Xw, obs, flow_meas, valid, p,
+                                 fx, fy, cx, cy, w_pt=w_pt)
+        accept, lam_n, nu_n = smallsolve.nielsen_step(F, F_new, pred, lam, nu)
         done_new = done | (accept & (F - F_new < p.rel_tol * F + 1e-10)) | (lam > 1e8)
         take = active & accept
         T = torch.where(take[:, None, None], T_new, T)
         f = torch.where(take[:, None, None], f_new, f)
         F = torch.where(take, F_new, F)
-        lam = torch.where(active, torch.where(accept, lam_acc, lam * nu), lam)
-        nu = torch.where(active, torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0), nu)
+        lam = torch.where(active, lam_n, lam)
+        nu = torch.where(active, nu_n, nu)
         done = torch.where(active, done_new, done)
 
-    _, chi2 = _residual_chi2(T, f, Xw, obs, flow_meas, valid, p, fx, fy, cx, cy)
+    _, chi2 = residual_chi2(T, f, Xw, obs, flow_meas, valid, p, fx, fy, cx, cy)
     inliers = valid & (chi2 <= p.rp_thres)
     n_in = inliers.sum(-1)
     mean_reproj = (torch.where(inliers, torch.sqrt(chi2), torch.zeros_like(chi2)).sum(-1)
                    / torch.clamp(n_in, min=1))
     return FlowBAResult(T=T, flow=f, chi2=chi2, inliers=inliers, n_inliers=n_in,
                         mean_reproj=mean_reproj)
+
+
+def flow_ba_route(name: str) -> str:
+    """``solve_flow_ba_auto``'s ``backend`` for a ``SolverConfig.flow_ba_backend``,
+    which keeps the JAX package's names: its ``"xla"`` is the plain version
+    here, ``"pallas"`` the CUDA kernel; every other name passes as it is."""
+    return {"xla": "torch", "pallas": "cuda"}.get(name, name)
+
+
+def camera_params(sol) -> FlowBAParams:
+    """The camera solve's parameters in a ``SolverConfig``."""
+    return FlowBAParams(reproj_info=sol.reproj_info, prior_info=sol.cam_flow_prior_info,
+                        rp_thres=sol.cam_rp_thres, iters=sol.cam_lm_iters, tau=sol.lm_tau)
 
 
 def solve_flow_ba_auto(
@@ -274,14 +293,8 @@ def solve_flow_depth_ba(
         wf = p.flow_prior_info * vmask
         wd = p.depth_prior_info * vmask
 
-        inv_z = 1.0 / torch.clamp(y[..., 2], min=1e-6)
-        zero = torch.zeros_like(inv_z)
-        dpi = torch.stack([
-            torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
-            torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
-        ], -2)                                              # (N, 2, 3)
-        eye3 = torch.eye(3, dtype=y.dtype, device=y.device).expand(y.shape[:-1] + (3, 3))
-        A = -(dpi @ torch.cat([-se3.hat(y), eye3], -1))     # d r_p / d xi (N, 2, 6)
+        dpi = camera.project_jacobian(y, fx, fy)            # (N, 2, 3)
+        A = -(dpi @ se3.point_jacobian(y))                  # d r_p / d xi (N, 2, 6)
         # X = backproject(obs, d) is linear in d: dy/dd = R_total @ the ray
         dy_dd = dirs @ (T[:3, :3] @ R_wl).T
         J_d = -(dpi @ dy_dd[..., None])[..., 0]             # (N, 2)
@@ -321,16 +334,12 @@ def solve_flow_depth_ba(
         f_new = f + dv[:, :2]
         d_new = torch.clamp(d + dv[:, 2], min=1e-3)
         F_new, _ = robust_objective(T_new, f_new, d_new)
-        accept = (F_new < Fv) & torch.isfinite(F_new)
-        gain = (Fv - F_new) / torch.clamp(pred, min=1e-20)
-        lam_acc = lam * torch.clamp(1.0 - (2.0 * gain - 1.0) ** 3, min=1.0 / 3.0)
+        accept, lam_n, nu = smallsolve.nielsen_step(Fv, F_new, pred, lam, nu)
         done = (accept & (Fv - F_new < p.rel_tol * Fv + 1e-10)) | (lam > 1e8)
         T = torch.where(accept, T_new, T)
         f = torch.where(accept, f_new, f)
         d = torch.where(accept, d_new, d)
-        Fv = torch.where(accept, F_new, Fv)
-        lam = torch.where(accept, lam_acc, lam * nu)
-        nu = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+        Fv, lam = torch.where(accept, F_new, Fv), lam_n
         if bool(done):
             break
     _, chi2 = robust_objective(T, f, d)

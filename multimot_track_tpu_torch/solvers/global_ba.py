@@ -75,11 +75,8 @@ def _obs_terms(T_stack, X, obs_kf, obs_uv, obs_disp, obs_w,
         torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
         torch.stack([zero, zero, bf * inv_z * inv_z], -1),
     ], -2)
-    # dy/dxi = [-[y]x | I]  (left-multiplicative update T <- exp(xi) T)
-    eye = torch.eye(3, dtype=y.dtype, device=y.device).expand(y.shape[:-1] + (3, 3))
-    dy_dxi = torch.cat([-se3.hat(y), eye], -1)
-    # r = obs - h(y): dr/d. = -dh/dy @ dy/d.
-    return r, w3, -(dpi @ dy_dxi), -(dpi @ Tk[..., :3, :3])
+    # r = obs - h(y): dr/d. = -dh/dy @ dy/d.  (left update T <- exp(xi) T)
+    return r, w3, -(dpi @ se3.point_jacobian(y)), -(dpi @ Tk[..., :3, :3])
 
 
 def _objective(T_stack, X, obs_kf, obs_uv, obs_disp, obs_w,

@@ -93,32 +93,24 @@ def _count_inliers(T, Xw, uv, valid, thresh, fx, fy, cx, cy):
     return inl, inl.sum(-1)
 
 
-def _proj_point_jacobian(y, fx, fy, bf=None):
-    """d(u, v[, disparity])/d xi of camera-frame points y (..., 3) under a
-    left se(3) perturbation: (..., 2, 6), or (..., 3, 6) with the stereo
-    disparity row bf/z when ``bf`` is given."""
-    inv_z = 1.0 / torch.clamp(y[..., 2], min=1e-6)
-    zero = torch.zeros_like(inv_z)
-    rows = [
-        torch.stack([fx * inv_z, zero, -fx * y[..., 0] * inv_z * inv_z], -1),
-        torch.stack([zero, fy * inv_z, -fy * y[..., 1] * inv_z * inv_z], -1),
-    ]
-    if bf is not None:
-        rows.append(torch.stack([zero, zero, -bf * inv_z * inv_z], -1))
-    dpi = torch.stack(rows, -2)
-    eye = torch.eye(3, dtype=y.dtype, device=y.device).expand(y.shape[:-1] + (3, 3))
-    dy = torch.cat([-se3.hat(y), eye], -1)
-    return dpi @ dy
-
-
-def _gn_refine(T, Xw, uv, w, iters, fx, fy, cx, cy):
-    """Weighted Gauss-Newton on 2-D reprojection over the inlier set."""
+def _gn_refine(T, Xw, uv, w, iters, fx, fy, cx, cy, stereo=None):
+    """Weighted Gauss-Newton on 2-D reprojection over the inlier set; with
+    ``stereo = (disp_obs, w_disp, bf)``, on the stereo residual (u, v,
+    disparity bf/z), whose disparity row carries the per-point weight
+    ``w_disp``.  Steps are left se(3) perturbations."""
     eye6 = 1e-6 * torch.eye(6, dtype=T.dtype, device=T.device)
     for _ in range(iters):
         y = se3.transform(T, Xw)
         r = camera.project(y, fx, fy, cx, cy) - uv
-        J = _proj_point_jacobian(y, fx, fy)
-        Jw = J * w[..., None, None]
+        if stereo is None:
+            J = camera.project_jacobian(y, fx, fy) @ se3.point_jacobian(y)
+            Jw = J * w[..., None, None]
+        else:
+            disp_obs, w_disp, bf = stereo
+            r_d = bf / torch.clamp(y[..., 2], min=1e-6) - disp_obs
+            J = camera.project_jacobian(y, fx, fy, bf) @ se3.point_jacobian(y)
+            r = torch.cat([r, r_d[..., None]], -1)
+            Jw = J * torch.stack([w, w, w * w_disp], -1)[..., None]
         H = torch.einsum("...nia,...nib->...ab", Jw, J) + eye6
         g = torch.einsum("...nia,...ni->...a", Jw, r)
         T = se3.exp_se3(smallsolve.solve_spd6(H, -g)) @ T
@@ -126,21 +118,8 @@ def _gn_refine(T, Xw, uv, w, iters, fx, fy, cx, cy):
 
 
 def _gn_refine_stereo(T, Xw, uv_obs, disp_obs, w, w_disp, iters, fx, fy, cx, cy, bf):
-    """Weighted Gauss-Newton on the stereo residual (u, v, disparity); the
-    disparity row carries the per-point depth-variance weight ``w_disp``."""
-    eye6 = 1e-6 * torch.eye(6, dtype=T.dtype, device=T.device)
-    for _ in range(iters):
-        y = se3.transform(T, Xw)
-        r_uv = camera.project(y, fx, fy, cx, cy) - uv_obs
-        r_d = bf / torch.clamp(y[..., 2], min=1e-6) - disp_obs
-        J = _proj_point_jacobian(y, fx, fy, bf=bf)
-        r = torch.cat([r_uv, r_d[..., None]], -1)
-        wr = torch.stack([w, w, w * w_disp], -1)
-        Jw = J * wr[..., None]
-        H = torch.einsum("...nia,...nib->...ab", Jw, J) + eye6
-        g = torch.einsum("...nia,...ni->...a", Jw, r)
-        T = se3.exp_se3(smallsolve.solve_spd6(H, -g)) @ T
-    return T
+    """``_gn_refine`` on the stereo residual."""
+    return _gn_refine(T, Xw, uv_obs, w, iters, fx, fy, cx, cy, stereo=(disp_obs, w_disp, bf))
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -98,3 +98,62 @@ def test_dispatch_auto_cpu_uses_plain_version_and_cuda_on_cpu_raises():
         tfb.solve_flow_ba_auto(*args, params=p, backend="cuda")
     with pytest.raises(ValueError, match="backend"):
         tfb.solve_flow_ba_auto(*args, params=p, backend="pallas")
+
+
+@pytest.mark.parametrize("name, route", [("auto", "auto"), ("xla", "torch"), ("pallas", "cuda"),
+                                         ("torch", "torch"), ("cuda", "cuda")])
+def test_route_translates_the_config_names(name, route):
+    """``SolverConfig.flow_ba_backend`` keeps the JAX package's names."""
+    assert tfb.flow_ba_route(name) == route
+
+
+def _solver_cfg(**solver):
+    import dataclasses
+
+    from multimot_track_tpu_torch import config as C
+
+    D = C.DEFAULT_CONFIG
+    return dataclasses.replace(D, solver=dataclasses.replace(D.solver, **solver))
+
+
+def test_pairwise_reads_the_jax_route_names():
+    """``flow_ba_backend="xla"`` (the JAX package's plain solver) is the
+    plain version here: on CPU tensors exactly what ``"auto"`` returns."""
+    from multimot_track_tpu_torch.parallel import pairwise
+    from multimot_track_tpu_torch.solvers import ransac
+
+    probs = [_make_problem(s, N=256, n_valid=240) for s in (4, 5)]
+    uv, flow, depth, valid = (_t(np.stack([p[i] for p in probs])) for i in range(4))
+
+    def solve(name):
+        sampler = ransac.MultinomialSampler(torch.Generator().manual_seed(9))
+        cfg = _solver_cfg(flow_ba_backend=name, ransac_iters=64, cam_lm_iters=20)
+        return pairwise.solve_relative_batch(sampler, range(2), uv, flow, depth, uv + flow,
+                                             depth, valid, cfg).numpy()
+
+    np.testing.assert_array_equal(solve("xla"), solve("auto"))
+
+
+def test_tracker_and_pairwise_share_the_route(monkeypatch):
+    """The tracker translates the config's name with the function pairwise
+    uses: ``"xla"`` reaches every flow-BA solve of a pair as ``"torch"``."""
+    import dataclasses
+
+    from multimot_track_tpu_torch.io.synth import make_multimover_frames, synth_camera_config
+    from multimot_track_tpu_torch.parallel import pairwise
+    from multimot_track_tpu_torch.pipeline import batch, tracker
+
+    assert tracker.flow_ba_route is tfb.flow_ba_route
+    assert pairwise.flow_ba_route is tfb.flow_ba_route
+    seen, solve = [], tracker.solve_flow_ba_auto
+
+    def recorded(*args, backend="auto", **kwargs):
+        seen.append(backend)
+        return solve(*args, backend=backend, **kwargs)
+
+    monkeypatch.setattr(tracker, "solve_flow_ba_auto", recorded)
+    cfg = _solver_cfg(flow_ba_backend="xla")
+    cfg = dataclasses.replace(cfg, camera=synth_camera_config(), padding=dataclasses.replace(
+        cfg.padding, n_static_max=1024, n_obj_pts_max=4096, k_obj_max=4, k_obj_solve=2))
+    batch.run_sequence_batched(make_multimover_frames(n_frames=2), cfg, seed=1, device="cpu")
+    assert len(seen) == 5 and set(seen) == {"torch"}

@@ -234,8 +234,10 @@ def test_slice_through_kernel_matches_plain_and_counts_launches(cuda_device):
     Tk, rk, reck = batch.run_sequence_batched(frames, cfg, seed=1, device=cuda_device,
                                               max_pairs_per_call=2)
     assert solve_flow_ba_cuda.launches == 5 * 2          # 2 chunks of pairs
-    Tp, rp, recp = batch.run_sequence_batched(frames, cfg, seed=1, device=cuda_device,
-                                              max_pairs_per_call=2, backend="torch")
+    plain = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                flow_ba_backend="torch"))
+    Tp, rp, recp = batch.run_sequence_batched(frames, plain, seed=1, device=cuda_device,
+                                              max_pairs_per_call=2)
     np.testing.assert_allclose(Tk, Tp, atol=1e-3)
     np.testing.assert_array_equal(rk.objects.active, rp.objects.active)
     assert [r["track_id"] for r in reck] == [r["track_id"] for r in recp]

@@ -26,11 +26,13 @@ WAITING_MODULES = {
     "solvers/flow_ba_pallas.py": "TPU kernel K1, replaced by csrc/flow_ba_lm.cu "
                                  "(solvers/flow_ba_cuda.py)",
 }
-# single names not ported: the TPU transfer workarounds (ROADMAP rules)
+# single names not ported: the TPU transfer workarounds (ROADMAP rules), and
+# the JAX ``run_sequence_streaming``'s one-frame bootstrap ``frontend_one`` (the
+# port's starts from ``frontend_batch``, and nothing called the port's copy)
 WAITING_NAMES = {
     "pipeline/tracker.py": {"pack_pytree", "unpack_pytree", "light_result_spec"},
     "pipeline/live_refine.py": {"packed_offsets", "split_refined"},
-    "pipeline/batch.py": {"track_batch_packed", "batch_result_spec"},
+    "pipeline/batch.py": {"track_batch_packed", "batch_result_spec", "frontend_one"},
     "solvers/flow_ba.py": {"pallas_scan_selfcheck"},
 }
 # names the port gives another name, because the JAX one names a JAX tool
