@@ -5,11 +5,12 @@
 
 Phases, in order; any failure exits non-zero before the result lines:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build kernels K1 (csrc/flow_ba_lm.cu), K2 (csrc/match_projected.cu) and
-     K3 (csrc/window_ba_lm.cu) with nvcc and the host sources (native/graphcut.cc, the exact graph-cut
+  2. build kernels K1 (csrc/flow_ba_lm.cu), K2 (csrc/match_projected.cu),
+     K3 (csrc/window_ba_lm.cu) and K4 (csrc/local_map_gn.cu) with nvcc and
+     the host sources (native/graphcut.cc, the exact graph-cut
      labeler; native/png_unfilter.cc, the PNG unfilter; native/loader.cc,
      the threaded KITTI loader with its own inflate) with the host
-     compiler, all six started together; print the build times and the
+     compiler, all seven started together; print the build times and the
      compilers' register / shared-memory reports;
   3. K1 against its plain torch version on the card at the five path
      shapes (live camera 1 x 2048 and batched camera 11 x 2048 with point
@@ -59,10 +60,11 @@ Phases, in order; any failure exits non-zero before the result lines:
      frame (host clock and CUDA events around the loop), stage means (the
      loop ladder's among them), peak memory, mean camera t-RPE, ATE, refined
      object t-RPE, keyframes, fused / culled points, local-map and window
-     refinements dispatched and accepted, joint window refines, K1, K2 and
-     K3 launches (K2 must equal the local-map refinements plus the fuse
-     scans, and be > 0; a window refinement per frame from the first full
-     window, each one K3 launch, at least one accepted; at least one joint refine in sync; no loop
+     refinements dispatched and accepted, joint window refines, K1, K2, K3
+     and K4 launches (K2 must equal the local-map refinements plus the fuse
+     scans, and be > 0; K4 the local-map refinements; a window
+     refinement per frame from the first full window, each one K3 launch,
+     at least one accepted; at least one joint refine in sync; no loop
      event: the junction never revisits); then the synchronous run once
      more with the plain matcher, whose trajectory must agree with the
      kernel run to 1e-4, and once with both windows off;
@@ -80,6 +82,13 @@ Phases, in order; any failure exits non-zero before the result lines:
      version's ms, the flop / byte bound and the share of it, and the
      launches and device kernels a call (1 each); ``--k3-only`` runs
      phases 1, 2 and this part alone, on a seeded window of that shape;
+  7b. K4 against ``keyframes.local_map_gn`` on the same card, on seeded
+     local maps of 1, 2 and 3 keyframes (M = 1024, 2048, 3072;
+     tests/torch_local_map_problem, 10 % outliers): max |d| of the pose
+     (atol 1e-4), the inlier counts (within 2), two launches identical,
+     then as for K3 the device ms of a launch, the wrapper's ms, the plain
+     version's ms, the bound and its share, launches and device kernels a
+     call (1 each); ``--k4-only`` runs phases 1, 2 and 7b alone;
   8. the live loop ladder: a shuttle at the KITTI camera with
      ``default_movers()`` (forward 0.3 m per frame over SHUTTLE_N positions,
      then back over the same path) through ``MultiMotSystem`` at
@@ -300,8 +309,10 @@ import time
 
 import numpy as np
 
+from portbench.bounds import H100_BYTES_PER_S, H100_FP32_FLOPS, H100_INT8_OPS
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("flow_ba_lm", "match_projected", "window_ba_lm")
+KERNELS = ("flow_ba_lm", "match_projected", "window_ba_lm", "local_map_gn")
 # native/<name>.cc, built with the host compiler: the exact graph-cut
 # labeler, the PNG unfilter and the threaded KITTI loader
 NATIVE = ("graphcut", "png_unfilter", "loader")
@@ -388,8 +399,14 @@ def time_ms(fn, rounds, reps):
 # objective; final chi2 and inlier sums)
 K1_FLOPS_PER_POINT_ITER = 295
 K1_FLOPS_PER_POINT_ONCE = 120
-H100_FP32_FLOPS = 67e12        # published peak outside the tensor cores
-H100_BYTES_PER_S = 3.35e12     # HBM3
+
+
+def fp32_bound_us(flops, byts):
+    """The larger of ``flops`` over the fp32 peak and ``byts`` over the
+    memory rate: (us, 'bytes' or 'operations', flop us, byte us)."""
+    t_ops, t_bytes = flops / H100_FP32_FLOPS, byts / H100_BYTES_PER_S
+    return (1e6 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            1e6 * t_ops, 1e6 * t_bytes)
 
 
 def k1_stages():
@@ -415,9 +432,7 @@ def k1_bound_us(args, out, iters):
     tensors_in = [v for v in args.values() if isinstance(v, torch.Tensor)]
     byts = sum(t.numel() * t.element_size() for t in tensors_in)
     byts += sum(t.numel() * t.element_size() for t in out if isinstance(t, torch.Tensor))
-    t_ops, t_bytes = flops / H100_FP32_FLOPS, byts / H100_BYTES_PER_S
-    return (1e6 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            1e6 * t_ops, 1e6 * t_bytes)
+    return fp32_bound_us(flops, byts)
 
 
 PROFILE_WARMUP = 3             # untimed calls in the profiler's warm-up step
@@ -973,9 +988,6 @@ def match_layouts(dev):
         f"({'; '.join(views)}) give exactly the contiguous call's results")
 
 
-H100_INT8_OPS = 1979e12        # published dense int8 tensor-core peak
-
-
 def k2_bound_us(args, outs, radius):
     """K2's least time on these inputs: a 256-wide +-1 dot product (512
     int8 operations) for every valid query / valid reference pair inside
@@ -1032,6 +1044,7 @@ def phase_live(dev, frames):
 
     from multimot_track_tpu_torch.ops.match_cuda import match_projected_cuda
     from multimot_track_tpu_torch.solvers.flow_ba_cuda import solve_flow_ba_cuda
+    from multimot_track_tpu_torch.solvers.local_map_gn_cuda import local_map_gn_cuda
     from multimot_track_tpu_torch.solvers.window_ba_cuda import solve_window_ba_cuda
 
     n = len(frames)
@@ -1046,10 +1059,11 @@ def phase_live(dev, frames):
         solve_flow_ba_cuda.launches = 0
         match_projected_cuda.launches = 0
         solve_window_ba_cuda.launches = 0
+        local_map_gn_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         s, res, host_s, ev_ms = run_live(dev, frames, cfg, **kw)
         k1, k2 = solve_flow_ba_cuda.launches, match_projected_cuda.launches
-        k3 = solve_window_ba_cuda.launches
+        k3, k4 = solve_window_ba_cuda.launches, local_map_gn_cuda.launches
         peak = torch.cuda.max_memory_allocated(dev)
         kf = s.keyframes
         summ = s.summary()
@@ -1071,7 +1085,7 @@ def phase_live(dev, frames):
             f"{s.win_accepted_frames}); joint window refines {s.n_joint_refines}")
         log(f"[live {mode}] launches: K1 {k1}, K2 {k2} "
             f"(expect {s.n_lm_dispatched} + {kf.n_fuse_scans}), K3 {k3} "
-            f"(expect {s.n_win_dispatched})")
+            f"(expect {s.n_win_dispatched}), K4 {k4} (expect {s.n_lm_dispatched})")
         log(f"[live {mode}] loop events {s.map.loop_events}; loop_ladder stage mean "
             f"{stages.get('loop_ladder', {}).get('mean_ms')} ms "
             f"({stages.get('loop_ladder', {}).get('n', 0)} calls)")
@@ -1088,6 +1102,9 @@ def phase_live(dev, frames):
         if not (k2 == s.n_lm_dispatched + kf.n_fuse_scans and k2 > 0 and k1 > 0):
             raise SystemExit(f"live {mode}: K2 launched {k2} times for "
                              f"{s.n_lm_dispatched} refinements + {kf.n_fuse_scans} fuse scans")
+        if k4 != s.n_lm_dispatched or s.stage_counts.get("local_map/gn/k4") != [1] * k4:
+            raise SystemExit(f"live {mode}: K4 launched {k4} times for {s.n_lm_dispatched} "
+                             f"refinements (counter {s.stage_counts.get('local_map/gn/k4')})")
         if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
             raise SystemExit(f"live {mode}: tracking accuracy out of bounds")
         # an accepted window had at least min_window_tracks live tracks
@@ -1100,7 +1117,7 @@ def phase_live(dev, frames):
                                    and "joint_ba" in stages):
             raise SystemExit(f"live sync: local-map accepts {s.lm_accepted_frames}, "
                              f"joint window refines {s.n_joint_refines}")
-        runs[mode] = dict(system=s, k1=k1, k2=k2, k3=k3, ms_per_frame=1e3 * host_s / n)
+        runs[mode] = dict(system=s, k1=k1, k2=k2, k3=k3, k4=k4, ms_per_frame=1e3 * host_s / n)
 
     s_p, _, host_p, _ = run_live(dev, frames, cfg, match_backend="torch")
     s_k = runs["sync"]["system"]
@@ -1122,7 +1139,7 @@ def phase_live(dev, frames):
     if not (summ["cam_t_rpe_rel_mean"] < 0.05 and summ["ego_ate_rmse_m"] < 0.5):
         raise SystemExit("live, windows off: tracking accuracy out of bounds")
     return dict(k1_launches=runs["sync"]["k1"], k2_launches=runs["sync"]["k2"],
-                k3_launches=runs["sync"]["k3"], system=s_k,
+                k3_launches=runs["sync"]["k3"], k4_launches=runs["sync"]["k4"], system=s_k,
                 ms_per_frame=runs["sync"]["ms_per_frame"])
 
 
@@ -1260,9 +1277,7 @@ def k3_bound_us(args, iters):
                 + D ** 3 / 3 + 3 * D * D)                 # Cholesky, two solves, assembly
     flops = iters * per_step + K3_FLOPS_PER_OBS_ONCE * n_vis
     byts = sum(x.numel() * x.element_size() for x in args) + 4 * (16 * F + N + 1)
-    t_ops, t_bytes = flops / H100_FP32_FLOPS, byts / H100_BYTES_PER_S
-    return (1e6 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            1e6 * t_ops, 1e6 * t_bytes)
+    return fp32_bound_us(flops, byts)
 
 
 def phase_window_kernel(dev, args, cam, params, label):
@@ -1324,6 +1339,99 @@ def phase_window_kernel(dev, args, cam, params, label):
                 ms=us_dev / 1e3, events_ms=ms_events, wrapper_ms=ms_wrapper,
                 enqueue_ms=ms_enqueue, plain_ms=ms_plain, bound_ms=bound_us / 1e3,
                 bound_by=bound_by, kernels_per_call=n_kern)
+
+
+# K4's bound, counted from csrc/local_map_gn.cu's loops, float32 operations.
+# Per map point per weighing (each round's weights and the final count):
+# the transform (3 rows of 3 multiply-adds and a translation), the pixel
+# residual (1 / z, 2 x 4), |d| (4) and the Huber weight or the gate (3).
+K4_FLOPS_PER_POINT_WEIGHT = 18 + 10 + 4 + 3
+# Per map point per Gauss-Newton step: the transform and pixel residual,
+# 1 / z and the disparity residual (3), the Jacobian's factors A..E (9) and
+# its 12 non-zero products (12), the disparity row's weight (1), then for
+# each of the 3 rows the 6 weighted entries and 21 + 6 multiply-adds.
+K4_FLOPS_PER_POINT_STEP = 18 + 10 + 3 + 9 + 12 + 1 + 3 * (6 + 2 * (21 + 6))
+# Per step: the 6 x 6 Cholesky (97), the two triangular solves (78), exp
+# (150) and the 3 x 4 compose (63).
+K4_FLOPS_PER_STEP = 97 + 78 + 150 + 63
+K4_POSE_ATOL, K4_COUNT_TOL = 1e-4, 2    # tests/test_torch_local_map_kernel.py
+K4_MAP_SIZES = (1024, 2048, 3072)       # local maps of 1, 2 and 3 keyframes of 1024 features
+
+
+def k4_bound_us(args, gn_iters, rounds):
+    """The least time the card could take for one local-map Gauss-Newton:
+    the larger of the flops its 2 ``rounds`` x ``gn_iters`` steps need
+    over the fp32 peak, and each input read once and each output written
+    once, over the memory rate.  Returns (us, 'bytes' or 'operations',
+    flop us, byte us)."""
+    M = args[1].shape[0]
+    steps = 2 * rounds * gn_iters
+    flops = (steps * (K4_FLOPS_PER_POINT_STEP * M + K4_FLOPS_PER_STEP)
+             + (2 * rounds + 1) * K4_FLOPS_PER_POINT_WEIGHT * M)
+    byts = sum(x.numel() * x.element_size() for x in args) + 4 * 16 + 8
+    return fp32_bound_us(flops, byts)
+
+
+def phase_local_map_kernel(dev):
+    """K4 against ``keyframes.local_map_gn`` on the card on seeded local
+    maps of each live size: agreement, bit-for-bit repeats, the device ms
+    of a launch (profiler and CUDA events), the wrapper's host ms, the
+    plain version's ms, the bound, and launches and device kernels a
+    call."""
+    import torch
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_local_map_problem import cams, make_local_map
+
+    from multimot_track_tpu_torch.pipeline.keyframes import local_map_gn
+    from multimot_track_tpu_torch.solvers.local_map_gn_cuda import local_map_gn_cuda
+
+    out = []
+    for M in K4_MAP_SIZES:
+        args = tuple(x.to(dev) for x in make_local_map(M=M, seed=M))
+        run_k = lambda: local_map_gn_cuda(*args, *cams())
+        run_p = lambda: local_map_gn(*args, *cams())
+        before = local_map_gn_cuda.launches
+        Tk, nk = run_k()
+        torch.cuda.synchronize()
+        launches = local_map_gn_cuda.launches - before
+        Tp, np_ = run_p()
+        T2, n2 = run_k()
+        torch.cuda.synchronize()
+        repeats = torch.equal(Tk, T2) and torch.equal(nk, n2)
+        dT = float((Tk - Tp).abs().max())
+        dn = abs(int(nk) - int(np_))
+        moved = float((Tk - args[0]).abs().max())
+        finite = bool(torch.isfinite(Tk).all())
+        ms_events = time_ms(run_k, rounds=5, reps=20)
+        ms_wrapper = host_ms(run_k, 20)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run_k()
+        ms_enqueue = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        ms_plain = time_ms(run_p, rounds=3, reps=2)
+        split, sessions = one_kernel_split(run_k)
+        n_kern = sum(n for n, _ in split.values())
+        us_dev = per_call_us(split) / n_kern if n_kern else float("nan")
+        bound_us, bound_by, ops_us, bytes_us = k4_bound_us(args, 8, 2)
+        log(f"[K4] M = {M} (2 + 2 rounds of 8 steps, {int(args[5].sum())} matched): max|dT| "
+            f"{dT:.3e} (atol {K4_POSE_ATOL}), inliers {int(nk)} / plain {int(np_)} (tol "
+            f"{K4_COUNT_TOL}); moved the pose by {moved:.3e}; two launches identical: {repeats}")
+        log(f"[K4] M = {M}: device {us_dev / 1e3:.4f} ms (profiler kernel time), "
+            f"{ms_events:.4f} ms (CUDA events, back-to-back calls), wrapper {ms_wrapper:.4f} ms "
+            f"a call (host, synchronised) / {ms_enqueue:.4f} ms enqueue, plain {ms_plain:.3f} "
+            f"ms | bound {bound_us:.3f} us by {bound_by} (flops {ops_us:.3f} us, bytes "
+            f"{bytes_us:.3f} us), {100 * bound_us / us_dev:.2f} % of bound | {launches} "
+            f"launch(es) and {n_kern} device kernel(s) a call ({sessions} profiler session(s))")
+        if not (finite and repeats and launches == 1 and n_kern == 1 and dT <= K4_POSE_ATOL
+                and dn <= K4_COUNT_TOL):
+            raise SystemExit(f"K4 disagrees with its plain version at M = {M}")
+        out.append(dict(M=M, max_abs_err=dT, count_diff=dn, ms=us_dev / 1e3,
+                        events_ms=ms_events, wrapper_ms=ms_wrapper, enqueue_ms=ms_enqueue,
+                        plain_ms=ms_plain, bound_ms=bound_us / 1e3, bound_by=bound_by,
+                        kernels_per_call=n_kern))
+    return out
 
 
 SHUTTLE_N = 8               # forward positions of the loop scene: 2 * 8 - 1 = 15 frames
@@ -3715,6 +3823,9 @@ def main(argv) -> int:
         args = make_window(F=be.window_size, N=be.n_window_tracks, seed=0)
         log(json.dumps({"k3": phase_window_kernel(dev, args, cams(), params, "seeded window")}))
         return 0
+    if "--k4-only" in argv:                 # phases 1, 2 and 7b alone, no result lines
+        log(json.dumps({"k4": phase_local_map_kernel(dev)}))
+        return 0
     if "--mono-only" in argv:               # phases 1, 2 and 12 alone, no result lines
         log(json.dumps({"mono": phase_mono(dev, log_dir)}, default=float))
         return 0
@@ -3752,7 +3863,8 @@ def main(argv) -> int:
     k2 = phase_match_kernel(dev)
     live = phase_live(dev, frames)
     k3 = phase_window(dev, frames, live["system"])
-    lap("phases 5-7")
+    k4 = phase_local_map_kernel(dev)
+    lap("phases 5-7b")
     t0 = time.perf_counter()
     shuttle = shuttle_frames()
     log(f"[scene] rendered the {len(shuttle)}-frame shuttle in {time.perf_counter() - t0:.1f} s")
@@ -3831,6 +3943,18 @@ def main(argv) -> int:
         "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"],
         "library_ms": None,        # no single PyTorch call runs a window LM
+    }, {
+        "name": "local_map_gn",
+        "route": "cuda",
+        "source": "multimot_track_tpu_torch/csrc/local_map_gn.cu",
+        "replaces": None,          # the JAX local-map GN is an XLA fori_loop, no kernel
+        "launches": live["k4_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k4),
+        "ms": k4[-1]["ms"],
+        "plain_ms": k4[-1]["plain_ms"],
+        "bound_ms": k4[-1]["bound_ms"],
+        "bound_by": k4[-1]["bound_by"],
+        "library_ms": None,        # no single PyTorch call runs a Gauss-Newton solve
     }]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,12 +5,13 @@ Port of ``multimot_track_tpu.pipeline.keyframes``: a fixed-capacity host
 list of keyframe arrays whose descriptors, world points and flags are
 cached once on the device; the local-map pose refinement
 (projection-guided matching through kernel K2, then stereo Gauss-Newton
-with inlier re-classification); the duplicate-landmark fuse scan of the
-newest keyframe against the previous L in one K2 launch (the JAX ``vmap``
-over L is K2's batch axis); keyframe redundancy culling; place-recognition
-scores; relocalization by RANSAC PnP; and the loop ladder: Sim3 RANSAC and
-a pose-graph correction (``close_loop``), then the global bundle adjustment
-over the keyframe graph (``global_ba``), plus two-view point creation
+with inlier re-classification, kernel K4 on the card); the
+duplicate-landmark fuse scan of the newest keyframe against the previous L
+in one K2 launch (the JAX ``vmap`` over L is K2's batch axis); keyframe
+redundancy culling; place-recognition scores; relocalization by RANSAC
+PnP; and the loop ladder: Sim3 RANSAC and a pose-graph correction
+(``close_loop``), then the global bundle adjustment over the keyframe
+graph (``global_ba``), plus two-view point creation
 (``triangulate_between``).
 
 Above ``bow_threshold`` keyframes, place recognition is two-stage
@@ -38,7 +39,7 @@ from multimot_track_tpu_torch.solvers.initializer import triangulate
 from multimot_track_tpu_torch.solvers.ransac import (
     HypothesisSampler, _count_inliers, _gn_refine_stereo,
 )
-from multimot_track_tpu_torch.utils.profiling import span
+from multimot_track_tpu_torch.utils.profiling import count, span
 
 # keyframes per batched descriptor-count pass: bounds the (chunk, N, N)
 # distance intermediates without changing any count
@@ -71,7 +72,8 @@ def local_map_refine(
     """Pose refinement against the local map (TrackLocalMap): project every
     map point with the init pose, match within ``radius`` px (K2), keep the
     best-distance map copy per current keypoint, then alternate weighted
-    stereo Gauss-Newton with inlier re-classification.
+    stereo Gauss-Newton with inlier re-classification
+    (``local_map_gn_auto``: kernel K4 on the card).
 
     Returns (T_refined, n_inliers, n_matches) as tensors.  Inside the live
     system's ``local_map`` span the two parts are the spans ``match`` and
@@ -93,11 +95,34 @@ def local_map_refine(
                               device=Xw.device).scatter_reduce(0, res.idx, key, "amin")
         matched = res.valid & (key <= best_key[res.idx])
         uv_obs = uv_cur[res.idx]
-        z_obs = z_cur[res.idx]
-        has_depth = matched & (z_obs > 0.25)
-        disp_obs = bf / torch.clamp(z_obs, min=0.25)
-        w_disp = has_depth.to(torch.float32) / (1.0 + (z_obs / depth_weight_z0) ** 2)
-        mf = matched.to(torch.float32)
+        disp_obs, w_disp = disparity_rows(z_cur[res.idx], matched, bf, depth_weight_z0)
+        n_match = matched.sum()
+
+    with span("gn"):
+        T, n = local_map_gn_auto(T_init, Xw, uv_obs, disp_obs, w_disp, matched,
+                                 fx, fy, cx, cy, bf, thresh=thresh, gn_iters=gn_iters,
+                                 rounds=rounds)
+    return T, n, n_match
+
+
+def disparity_rows(z_obs, matched, bf, depth_weight_z0: float = 15.0):
+    """The disparity row of each map point's stereo residual: the measured
+    disparity ``bf / max(z, 0.25)`` and its weight, 0 without a depth
+    (unmatched, or z <= 0.25 m) and falling as ``1 / (1 + (z / z0)^2)``
+    with the depth's noise.  Returns (disp_obs, w_disp)."""
+    has_depth = matched & (z_obs > 0.25)
+    disp_obs = bf / torch.clamp(z_obs, min=0.25)
+    w_disp = has_depth.to(torch.float32) / (1.0 + (z_obs / depth_weight_z0) ** 2)
+    return disp_obs, w_disp
+
+
+def local_map_gn(T_init, Xw, uv_obs, disp_obs, w_disp, matched, fx, fy, cx, cy, bf,
+                 thresh: float = 3.0, gn_iters: int = 8, rounds: int = 2):
+    """TrackLocalMap's stereo Gauss-Newton, plain: ``rounds`` rounds of
+    ``gn_iters`` steps on IRLS Huber weights (delta = ``thresh``) taken at
+    each round's start, then ``rounds`` rounds on the inlier set, recounted
+    after each.  Returns (T, n_inliers) as tensors."""
+    mf = matched.to(torch.float32)
 
     def huber_w(T):
         """IRLS Huber weights at delta = thresh over all matches."""
@@ -107,17 +132,33 @@ def local_map_refine(
         w = torch.clamp(thresh / torch.clamp(r, min=1e-6), max=1.0)
         return mf * w * (yy[..., 2] > 0)
 
-    with span("gn"):
-        T = T_init
-        for _ in range(rounds):
-            T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, huber_w(T), w_disp, gn_iters,
-                                  fx, fy, cx, cy, bf)
+    T = T_init
+    for _ in range(rounds):
+        T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, huber_w(T), w_disp, gn_iters,
+                              fx, fy, cx, cy, bf)
+    inl, n = _count_inliers(T, Xw, uv_obs, matched, thresh, fx, fy, cx, cy)
+    for _ in range(rounds):
+        T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, inl.to(torch.float32), w_disp,
+                              gn_iters, fx, fy, cx, cy, bf)
         inl, n = _count_inliers(T, Xw, uv_obs, matched, thresh, fx, fy, cx, cy)
-        for _ in range(rounds):
-            T = _gn_refine_stereo(T, Xw, uv_obs, disp_obs, inl.to(torch.float32), w_disp,
-                                  gn_iters, fx, fy, cx, cy, bf)
-            inl, n = _count_inliers(T, Xw, uv_obs, matched, thresh, fx, fy, cx, cy)
-        return T, n, matched.sum()
+    return T, n
+
+
+def local_map_gn_auto(T_init, Xw, uv_obs, disp_obs, w_disp, matched, fx, fy, cx, cy, bf,
+                      thresh: float = 3.0, gn_iters: int = 8, rounds: int = 2):
+    """Kernel K4 for CUDA tensors, ``local_map_gn`` for CPU tensors; counts
+    ``k4`` in the open span (1 when K4 ran, 0 else).  A kernel that fails to
+    build or launch raises: there is no fallback."""
+    args = (T_init, Xw, uv_obs, disp_obs, w_disp, matched, fx, fy, cx, cy, bf)
+    kw = dict(thresh=thresh, gn_iters=gn_iters, rounds=rounds)
+    if Xw.is_cuda:
+        from multimot_track_tpu_torch.solvers.local_map_gn_cuda import local_map_gn_cuda
+
+        out = local_map_gn_cuda(*args, **kw)
+        count("k4", 1)
+        return out
+    count("k4", 0)
+    return local_map_gn(*args, **kw)
 
 
 def _fuse_scan(Tcw_new, desc_new, uv_new, valid_new, Xw_new,    # the new keyframe
